@@ -1,0 +1,17 @@
+"""concrete-tpu-torch: the PyTorch/CUDA port of concrete-tpu (TFHE over the
+discretized torus), for NVIDIA Hopper GPUs.
+
+The JAX package ``concrete_tpu`` is the reference: every server-side op here
+is exact integer arithmetic mod 2^32 and is held bit for bit against it.
+This package imports torch and numpy, never jax. The kernels that the JAX
+package writes in Pallas for the TPU are hand-written CUDA C++ here
+(``csrc/``), built at first use on a CUDA machine; on CPU tensors their
+plain PyTorch versions run instead.
+
+Ported so far: the boolean-gate bootstrap on the u32 torus through the
+toeplitz ("mxu") backend — ``concrete_tpu_torch.boolean``.
+"""
+
+from . import dispersion, params  # noqa: F401
+
+__version__ = "0.1.0"

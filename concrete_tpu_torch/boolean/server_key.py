@@ -1,0 +1,280 @@
+"""Server key and homomorphic boolean gates (concrete-boolean/src/server_key).
+
+Every bootstrapped gate is a linear combination, a PBS with the constant
++1/8 test polynomial, then a keyswitch back to the small key:
+  AND:  l + r - 1/8        NAND: -l - r + 1/8
+  OR:   l + r + 1/8        NOR:  -l - r - 1/8
+  XOR:  2(l + r) + 1/4     XNOR: 2(-l - r) - 1/4
+  NOT:  -l (no bootstrap)  MUX:  pbs(c+t-1/8) + pbs(-c+e-1/8) + 1/8, keyswitch
+The PBS runs through the toeplitz ("mxu") backend, the port's only one so
+far. Gates take np.uint32 arrays or int32 tensors [..., n+1] and return
+int32 tensors on the key's device.
+
+Example (AND and XOR on tiny insecure parameters, on the CPU):
+    >>> from concrete_tpu_torch import boolean
+    >>> from concrete_tpu_torch.params import BooleanParameters
+    >>> from concrete_tpu_torch.dispersion import StandardDev
+    >>> tiny = BooleanParameters(4, 1, 64, StandardDev(2.0 ** -20),
+    ...     StandardDev(2.0 ** -25), 7, 3, 2, 5)
+    >>> cks, sks = boolean.gen_keys(tiny, secret_seed=1, mask_seed=2,
+    ...                             noise_seed=3, device="cpu")
+    >>> a = cks.encrypt([True, True, False, False], mask_seed=4, noise_seed=5)
+    >>> b = cks.encrypt([True, False, True, False], mask_seed=6, noise_seed=7)
+    >>> cks.decrypt(sks.and_(a, b)).tolist(), cks.decrypt(sks.xor(a, b)).tolist()
+    ([True, False, False, False], [False, True, True, False])
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..core import bootstrap as bs
+from ..core import bootstrap_mxu as bsx
+from ..core import lwe as lwe_ops
+from ..core.ggsw import StandardBootstrapKey
+from ..ops import _cuda
+from ..params import BooleanParameters
+from ..torus import EncryptionRandom, as_torus, from_numpy, i32
+from .client_key import ClientKey, PLAINTEXT_LOG_SCALING_FACTOR, PLAINTEXT_TRUE
+
+# gate offsets as int32 bit patterns (the negative ones are u32 > 2^31)
+_EIGHTH = i32(1 << (32 - PLAINTEXT_LOG_SCALING_FACTOR))
+_QUARTER = i32(1 << (32 - PLAINTEXT_LOG_SCALING_FACTOR + 1))
+_NEG_EIGHTH = i32(-(1 << (32 - PLAINTEXT_LOG_SCALING_FACTOR)))
+_NEG_QUARTER = i32(-(1 << (32 - PLAINTEXT_LOG_SCALING_FACTOR + 1)))
+
+# linear combination per gate (server_key/mod.rs:133-614): lin(a, b), offset
+_GATE_LIN = {
+    "and": (lambda a, b: a + b, _NEG_EIGHTH),
+    "nand": (lambda a, b: -a - b, _EIGHTH),
+    "or": (lambda a, b: a + b, _EIGHTH),
+    "nor": (lambda a, b: -a - b, _NEG_EIGHTH),
+    "xor": (lambda a, b: (a + b) * 2, _QUARTER),
+    "xnor": (lambda a, b: (-a - b) * 2, _NEG_QUARTER),
+}
+
+
+def _default_device() -> torch.device:
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+@dataclasses.dataclass
+class ServerKey:
+    """Coefficient-domain bootstrap key + keyswitch key + configuration.
+
+    The evaluation forms (toeplitz rings of the BSK, int8 limb planes of the
+    KSK) are derived from the stored arrays at first use, on `device`."""
+
+    ksk: np.ndarray               # [k*N, l_ks, n+1] np.uint32
+    cfg: bs.ServerConfig
+    bsk_standard: np.ndarray      # [n, l, k+1, k+1, N] np.uint32
+    device: torch.device | str | None = None   # None: the GPU if present
+    _bsk_mxu: torch.Tensor | None = dataclasses.field(default=None, repr=False)
+    _ksk8: torch.Tensor | None = dataclasses.field(default=None, repr=False)
+    # batch tiers run by warmup(); _pad_size pads smaller requests up to them
+    _warmed_tiers: set = dataclasses.field(
+        default_factory=set, repr=False, compare=False)
+
+    def __post_init__(self):
+        c = self.cfg
+        self.device = (torch.device(self.device) if self.device is not None
+                       else _default_device())
+        bsk_shape = (c.lwe_dimension, c.pbs_level, c.glwe_size, c.glwe_size,
+                     c.polynomial_size)
+        ksk_shape = (c.big_lwe_dimension, c.ks_level, c.lwe_dimension + 1)
+        if self.bsk_standard.shape != bsk_shape or self.ksk.shape != ksk_shape:
+            raise ValueError(
+                f"key shapes {self.bsk_standard.shape} / {self.ksk.shape} do "
+                f"not match the configuration ({bsk_shape} / {ksk_shape})")
+
+    def resolved_backend(self) -> str:
+        """"mxu", the port's only backend; raises NotImplementedError for a
+        configuration outside its envelope (N > 4096, ...)."""
+        bsx.MxuPlan.from_config(self.cfg)
+        return "mxu"
+
+    @property
+    def bsk_mxu(self) -> torch.Tensor:
+        """Toeplitz rotation rings [n, R, k+1, 2N] int32 on the device."""
+        if self._bsk_mxu is None:
+            self.resolved_backend()
+            self._bsk_mxu = from_numpy(
+                bsx.bsk_to_mxu(self.bsk_standard, self.cfg), self.device)
+        return self._bsk_mxu
+
+    @property
+    def ksk8(self) -> torch.Tensor:
+        """int8 limb-prepared keyswitch key [k*N*l_ks, 4*(n+1)] (lwe.ksk_to_limbs)."""
+        if self._ksk8 is None:
+            if not (self.cfg.ks_base_log <= 7
+                    and self.ksk.shape[0] * self.ksk.shape[1] * 8192 < 2 ** 31):
+                raise NotImplementedError(
+                    "only the int8 limb keyswitch is ported (ks_base_log <= 7)")
+            self._ksk8 = torch.from_numpy(
+                lwe_ops.ksk_to_limbs(self.ksk)).to(self.device)
+        return self._ksk8
+
+    # -- construction and storage -------------------------------------------
+
+    @classmethod
+    def new(cls, cks: ClientKey, *, mask_seed: int | None = None,
+            noise_seed: int | None = None, device=None) -> "ServerKey":
+        """ServerKey::new (server_key/mod.rs:55-111): the BSK under the GLWE
+        key and the keyswitch key from the big LWE key back to the small one.
+        Masks and noise come from numpy Generators seeded with `mask_seed`
+        and `noise_seed` (not the JAX package's AES-CTR streams)."""
+        p = cks.parameters
+        rand = EncryptionRandom.new(mask_seed, noise_seed)
+        bsk = StandardBootstrapKey.generate(
+            cks.lwe_secret_key, cks.glwe_secret_key, p.pbs_base_log,
+            p.pbs_level, p.glwe_modular_std_dev.std_dev, rand)
+        ksk = lwe_ops.LweKeyswitchKey.generate(
+            cks.glwe_secret_key.into_lwe_key(), cks.lwe_secret_key,
+            p.ks_base_log, p.ks_level, p.lwe_modular_std_dev.std_dev, rand)
+        return cls.from_arrays(bsk.data, ksk.data, p, device=device)
+
+    @classmethod
+    def from_arrays(cls, bsk_standard, ksk, params: BooleanParameters, *,
+                    device=None) -> "ServerKey":
+        """From a [n, l, k+1, k+1, N] BSK and a [k*N, l_ks, n+1] KSK, u32."""
+        return cls(ksk=np.asarray(ksk, dtype=np.uint32),
+                   cfg=bs.ServerConfig.from_boolean_parameters(params),
+                   bsk_standard=np.asarray(bsk_standard, dtype=np.uint32),
+                   device=device)
+
+    def save(self, path: str):
+        """Serialize in the npz format of concrete_tpu's ServerKey.save."""
+        c = self.cfg
+        np.savez_compressed(
+            path, bsk=self.bsk_standard, ksk=self.ksk,
+            lwe_dimension=c.lwe_dimension, glwe_dimension=c.glwe_dimension,
+            polynomial_size=c.polynomial_size, pbs_base_log=c.pbs_base_log,
+            pbs_level=c.pbs_level, ks_base_log=c.ks_base_log,
+            ks_level=c.ks_level)
+
+    @classmethod
+    def load(cls, path: str, *, device=None) -> "ServerKey":
+        """Read a key written by `save` or by concrete_tpu's ServerKey.save."""
+        with np.load(path, allow_pickle=False) as d:
+            cfg = bs.ServerConfig(**{
+                f.name: int(d[f.name]) for f in dataclasses.fields(bs.ServerConfig)})
+            return cls(ksk=d["ksk"].astype(np.uint32), cfg=cfg,
+                       bsk_standard=d["bsk"].astype(np.uint32), device=device)
+
+    def to(self, device) -> "ServerKey":
+        """The same key on another device (evaluation forms moved, not
+        rebuilt; warmed tiers are per device and start empty)."""
+        move = (lambda t: None if t is None else t.to(device))
+        return dataclasses.replace(
+            self, device=torch.device(device), _bsk_mxu=move(self._bsk_mxu),
+            _ksk8=move(self._ksk8), _warmed_tiers=set())
+
+    # -- batching ------------------------------------------------------------
+
+    def _pad_size(self, b: int) -> int:
+        """Padded batch for a `b`-row gate call: the smallest warmed tier that
+        fits, else the next power of two."""
+        fitting = [t for t in self._warmed_tiers if t >= b]
+        if fitting:
+            return min(fitting)
+        return 1 << (b - 1).bit_length() if b > 1 else 1
+
+    def _padded_call(self, fn, *cts):
+        """Call `fn` on the ciphertext batches broadcast together, flattened
+        and zero-padded to `_pad_size` rows; the padding rows bootstrap
+        harmlessly and are cut off."""
+        cts = torch.broadcast_tensors(*[as_torus(c, self.device) for c in cts])
+        lead = cts[0].shape[:-1]
+        flats = [c.reshape(-1, c.shape[-1]) for c in cts]
+        b = flats[0].shape[0]
+        if b == 0:
+            return torch.zeros(lead + cts[0].shape[-1:], dtype=torch.int32,
+                               device=self.device)
+        padded = self._pad_size(b)
+        if padded != b:
+            flats = [torch.cat([f, f.new_zeros((padded - b, f.shape[1]))])
+                     for f in flats]
+        out = fn(*flats)
+        return out[:b].reshape(lead + out.shape[-1:])
+
+    def warmup(self, batch_sizes=(2048,)):
+        """Build the CUDA kernels (on a CUDA key) and run one AND call per
+        batch tier, which also moves the evaluation keys onto the device.
+        Each size is rounded up to a power-of-two tier; later gate calls pad
+        every request up to the smallest warmed tier that fits. Returns
+        {tier: seconds}."""
+        if self.device.type == "cuda":
+            _cuda.library()
+        timings = {}
+        for bsz in batch_sizes:
+            tier = 1 << (int(bsz) - 1).bit_length() if bsz > 1 else 1
+            self._warmed_tiers.add(tier)
+            z = torch.zeros((tier, self.cfg.lwe_dimension + 1),
+                            dtype=torch.int32, device=self.device)
+            t0 = time.perf_counter()
+            self.and_(z, z)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            timings[tier] = time.perf_counter() - t0
+        return timings
+
+    # -- gates ---------------------------------------------------------------
+
+    def _lut(self) -> torch.Tensor:
+        return bs.trivial_lut_constant(self.cfg, PLAINTEXT_TRUE, self.device)
+
+    def _run_gate(self, gate: str, ct_left, ct_right) -> torch.Tensor:
+        lin_fn, offset = _GATE_LIN[gate]
+
+        def run(a, b):
+            lin = lin_fn(a, b)
+            lin[:, -1] += offset
+            return bsx.bootstrap_keyswitch_mxu(
+                self.cfg, self.bsk_mxu, self.ksk8, self._lut(), lin)
+
+        return self._padded_call(run, ct_left, ct_right)
+
+    def and_(self, ct_left, ct_right):
+        return self._run_gate("and", ct_left, ct_right)
+
+    def nand(self, ct_left, ct_right):
+        return self._run_gate("nand", ct_left, ct_right)
+
+    def or_(self, ct_left, ct_right):
+        return self._run_gate("or", ct_left, ct_right)
+
+    def nor(self, ct_left, ct_right):
+        return self._run_gate("nor", ct_left, ct_right)
+
+    def xor(self, ct_left, ct_right):
+        return self._run_gate("xor", ct_left, ct_right)
+
+    def xnor(self, ct_left, ct_right):
+        return self._run_gate("xnor", ct_left, ct_right)
+
+    def not_(self, ct):
+        """Free negation, no bootstrap (server_key/mod.rs:422-429)."""
+        return -as_torus(ct, self.device)
+
+    def mux(self, ct_condition, ct_then, ct_else):
+        """(c ? t : e) via two PBS sharing one blind rotation batch, then one
+        keyswitch (server_key/mod.rs:197-279)."""
+
+        def run(c, t, e):
+            lin1 = c + t
+            lin1[:, -1] += _NEG_EIGHTH
+            lin2 = e - c
+            lin2[:, -1] += _NEG_EIGHTH
+            pbs = bsx.bootstrap_mxu(self.cfg, self.bsk_mxu, self._lut(),
+                                    torch.stack([lin1, lin2]))
+            summed = pbs[0] + pbs[1]
+            summed[:, -1] += _EIGHTH
+            return lwe_ops.keyswitch_limbs(
+                self.ksk8, summed, base_log=self.cfg.ks_base_log,
+                level_count=self.cfg.ks_level)
+
+        return self._padded_call(run, ct_condition, ct_then, ct_else)

@@ -1,0 +1,524 @@
+"""Programmable bootstrapping with the external product as an exact
+negacyclic toeplitz matmul mod 2^32 on int8 operands (the "mxu" backend of
+concrete_tpu/core/bootstrap_mxu.py, u32 torus).
+
+Exactness, as in the JAX package:
+- gadget digits satisfy |d| <= B/2; digits wider than int8 are split into
+  balanced 7-bit chunks d = sum_j 2^(7j) e_j with |e_j| <= 64;
+- each u32 key coefficient is packed as 4 balanced signed-byte limbs c_m in
+  [-128, 127] with sum_m c_m 2^(8m) == v (mod 2^32);
+- the int8 x int8 -> int32 product over K <= 2^31 / 8192 rows is exact, and
+  the wrapping recombination sum_m S_m << 8m IS the result mod 2^32.
+
+One CMux step of the blind rotation, batch B:
+    rotdig        (K2)  digits of X^a_hat * acc - acc   -> d8  [B, R*N] int8
+    build_tables  (K1)  toeplitz RHS of the step's GGSW -> rhs [R*N, (k+1)*4*N] int8
+    int_mm              S = d8 @ rhs                    -> [B, (k+1)*4*N] int32
+    recombine           acc += sum_m S_m << 8m
+At large batch the dot-first form folds the recombine of step j into the
+digit kernel of step j+1 (rotdig_recombine, K3).
+
+Each kernel wrapper below takes its plain PyTorch version when its tensors
+lie on the CPU, and launches the hand-written CUDA kernel
+(csrc/mxu_kernels.cu) when they lie on a CUDA device; `launches` counts the
+kernel launches.
+
+Example:
+    >>> from concrete_tpu_torch.core.bootstrap import ServerConfig
+    >>> cfg = ServerConfig(lwe_dimension=4, glwe_dimension=1, polynomial_size=64,
+    ...     pbs_base_log=7, pbs_level=2, ks_base_log=4, ks_level=3)
+    >>> plan = MxuPlan.from_config(cfg)
+    >>> (plan.row_blocks, plan.n_sub, plan.limbs_used)
+    (4, 1, 4)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..math import decomposition, polynomial
+from ..ops import _cuda
+from . import lwe as lwe_ops
+from .bootstrap import (
+    ServerConfig,
+    pbs_modulus_switch,
+    sample_extract,
+    sample_extract_nth,
+)
+
+# ---------------------------------------------------------------------------
+# plan
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MxuPlan:
+    """Static layout of the toeplitz-matmul external product (u32 torus)."""
+
+    lwe_dimension: int
+    glwe_size: int          # k+1
+    polynomial_size: int
+    base_log: int
+    level: int
+    n_sub: int              # int8 sub-digits per gadget digit
+    ks_base_log: int
+    ks_level: int
+    limb_drop: int = 0      # low key byte limbs dropped (reduced precision)
+
+    SUB_CHUNK_BITS = 7
+    N_LIMBS = 4             # signed-byte limbs of a u32 coefficient
+
+    @classmethod
+    def from_config(cls, cfg: ServerConfig) -> "MxuPlan":
+        if cfg.polynomial_size > 4096:
+            raise NotImplementedError(
+                "toeplitz RHS is O(N^2) per CMux; N > 4096 needs the "
+                "Nussbaumer backend, which is not ported yet")
+        bl = cfg.pbs_base_log
+        if not (1 <= bl < 32 and bl * cfg.pbs_level <= 32):
+            raise NotImplementedError(
+                f"pbs_base_log={bl}, pbs_level={cfg.pbs_level}: need "
+                "base_log < 32 and base_log*level <= 32")
+        n_sub = 1 if bl <= 7 else (bl - 8) // 7 + 2
+        k_rows = cfg.pbs_level * cfg.glwe_size * n_sub * cfg.polynomial_size
+        if k_rows * 64 * 128 >= 2 ** 31:
+            raise NotImplementedError(
+                f"int32 accumulation bound exceeded (K={k_rows})")
+        return cls(
+            lwe_dimension=cfg.lwe_dimension,
+            glwe_size=cfg.glwe_size,
+            polynomial_size=cfg.polynomial_size,
+            base_log=bl,
+            level=cfg.pbs_level,
+            n_sub=n_sub,
+            ks_base_log=cfg.ks_base_log,
+            ks_level=cfg.ks_level,
+        )
+
+    def sub_multiplier(self, sub: int) -> int:
+        """2^(7j) weight of sub-digit `sub` (sub=0 = most significant)."""
+        return 1 << (self.SUB_CHUNK_BITS * (self.n_sub - 1 - sub))
+
+    @property
+    def limbs_used(self) -> int:
+        """Key byte limbs carried by the RHS and the recombine."""
+        return self.N_LIMBS - self.limb_drop
+
+    @property
+    def row_blocks(self) -> int:
+        """R = number of N-row blocks of the digit matrix."""
+        return self.level * self.glwe_size * self.n_sub
+
+
+# ---------------------------------------------------------------------------
+# key conversion (host numpy, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def _limb_pack(v: np.ndarray) -> np.ndarray:
+    """Pack the balanced signed-byte limbs of u32 `v` into u32 words: byte m
+    is limb c_m mod 256; carries propagate upward and the top carry wraps,
+    so the bytes recompose to v exactly."""
+    w = v.astype(np.uint32)
+    one = np.uint32(1)
+    with np.errstate(over="ignore"):
+        for b in range(7, 24, 8):
+            w = w + (((w >> np.uint32(b)) & one) << np.uint32(b + 1))
+    return w
+
+
+def bsk_to_mxu(bsk_data, cfg: ServerConfig) -> np.ndarray:
+    """[n, l, k+1, k+1, N] u32 BSK -> toeplitz rotation rings
+    [n, R, k+1, 2N] u32: ring = [limbs(+g), limbs(-g)], row blocks in
+    (lev, sub, ki) order, sub=0 the 2^7-scaled high chunk. The negated half
+    is precomputed because the balanced limbs of -g are not -limbs(g)."""
+    plan = MxuPlan.from_config(cfg)
+    bsk = np.asarray(bsk_data, dtype=np.uint32)
+    n, l, ks1, _, N = bsk.shape
+    rings = np.empty((n, plan.row_blocks, ks1, 2 * N), dtype=np.uint32)
+    blk = 0
+    with np.errstate(over="ignore"):
+        for lev in range(l):
+            for sub in range(plan.n_sub):
+                mult = np.uint32(plan.sub_multiplier(sub))
+                for ki in range(ks1):
+                    g = bsk[:, lev, ki, :, :] * mult     # [n, k+1, N] wrapping
+                    rings[:, blk, :, :N] = _limb_pack(g)
+                    rings[:, blk, :, N:] = _limb_pack(np.uint32(0) - g)
+                    blk += 1
+    return rings
+
+
+def _kept_limbs(limb_drop: int) -> list[int]:
+    """Byte limbs kept by the RHS, ascending (limb_drop removes low ones)."""
+    return list(range(limb_drop, MxuPlan.N_LIMBS))
+
+
+# ---------------------------------------------------------------------------
+# shared helpers
+# ---------------------------------------------------------------------------
+
+
+def _split_subdigits(digit: torch.Tensor, n_sub: int):
+    """Balanced 7-bit chunks of an int32 gadget digit, MSB chunk first:
+    d = sum_j 2^(7j) e_j with |e_j| <= 64. The shifts are arithmetic, as on
+    the JAX side's int32."""
+    if n_sub == 1:
+        return (digit,)
+    w = MxuPlan.SUB_CHUNK_BITS
+    half, msk = 1 << (w - 1), (1 << w) - 1
+    rem, chunks = digit, []
+    for _ in range(n_sub - 1):
+        e = ((rem + half) & msk) - half
+        rem = (rem - e) >> w
+        chunks.append(e)
+    chunks.append(rem)
+    return tuple(reversed(chunks))
+
+
+def _digit_matrix(plan: MxuPlan, diff: torch.Tensor) -> torch.Tensor:
+    """Signed gadget decomposition of diff [k+1, B, N] into the int8 digit
+    matrix [B, R*N], row blocks in (lev, sub, ki) order."""
+    digits = decomposition.decompose_rounded(diff, plan.base_log, plan.level)
+    parts = []
+    for lev in range(plan.level):
+        for dsub in _split_subdigits(digits[..., lev], plan.n_sub):
+            parts.extend(dsub[ki].to(torch.int8) for ki in range(diff.shape[0]))
+    return torch.cat(parts, dim=1)
+
+
+def recombine_limb_planes(plan: MxuPlan, s: torch.Tensor) -> torch.Tensor:
+    """[B, (kj, m, c)] int32 dot output -> [k+1, B, N]: the wrapping sum of
+    the limb planes, S_m << 8(limb_drop + m), is the value mod 2^32."""
+    b = s.shape[0]
+    planes = s.reshape(b, plan.glwe_size, plan.limbs_used, plan.polynomial_size)
+    out = planes[:, :, 0] << (8 * plan.limb_drop)
+    for j in range(1, plan.limbs_used):
+        out = out + (planes[:, :, j] << (8 * (plan.limb_drop + j)))
+    return out.permute(1, 0, 2)
+
+
+def _ceil8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
+def int_mm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None):
+    """Exact a [M, K] int8 @ b [K, N] int8 -> [M, N] int32 (torch._int_mm).
+
+    On CUDA, torch._int_mm refuses M <= 16 and K or N not a multiple of 8,
+    and its cuBLASLt call refused every M that is not a multiple of 32 once
+    K <= 64 (torch 2.11, H100); such shapes are zero-padded to M a multiple
+    of 32 and K, N multiples of 8 (the padding adds zeros and is cut off),
+    and only there."""
+    m, k = a.shape
+    n = b.shape[1]
+    if a.device.type == "cuda":
+        mp, kp, np_ = -(-m // 32) * 32, _ceil8(k), _ceil8(n)
+        if (mp, kp, np_) != (m, k, n):
+            ap = torch.zeros((mp, kp), dtype=a.dtype, device=a.device)
+            ap[:m, :k] = a
+            bp = torch.zeros((kp, np_), dtype=b.dtype, device=b.device)
+            bp[:k, :n] = b
+            res = torch._int_mm(ap, bp)[:m, :n]
+            return res if out is None else out.copy_(res)
+    if out is None:
+        return torch._int_mm(a, b)
+    return torch._int_mm(a, b, out=out)
+
+
+def _toeplitz_matmul(plan: MxuPlan, d8, rhs, out=None):
+    """d8 [B, R*N] x rhs [R*N, (k+1)*L*N] -> [k+1, B, N]: the exact external
+    product mod 2^32 (one int8 dot into `out`, then the limb recombination)."""
+    return recombine_limb_planes(plan, int_mm(d8, rhs, out=out))
+
+
+# ---------------------------------------------------------------------------
+# the three kernels: plain PyTorch versions and wrappers
+# ---------------------------------------------------------------------------
+
+
+def _on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU, False when all lie on one
+    CUDA device; anything else is refused."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) == 1:
+        (dev,) = devices
+        if dev.type == "cpu":
+            return True
+        if dev.type == "cuda":
+            return False
+    raise ValueError(f"tensors must share one CPU or CUDA device, got {devices}")
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_kernel_operands(n: int, *tensors):
+    """What the CUDA kernels assume beyond shapes: N a power of two >= 4
+    (index masks, 4 coefficients a thread) and operands aligned for the
+    16-byte (uint4) loads and 4-byte stores."""
+    if n < 4 or n & (n - 1):
+        raise ValueError(f"polynomial_size {n}: must be a power of two >= 4")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("CUDA kernel operands must be 16-byte aligned")
+
+
+def build_tables_plain(rings: torch.Tensor, n: int, limb_drop: int = 0):
+    """rings [R, k+1, 2N] int32 -> RHS [R*N, (k+1)*L*N] int8, L = 4 -
+    limb_drop: entry (blk*N + r, (kj*L + li)*N + c) is byte limb_drop+li of
+    ring[blk, kj][(c - r) mod 2N], the negacyclic toeplitz matrix.
+
+    Row r of block blk reads ring[(c - r) mod 2N] for c < N, i.e. the window
+    ext[N - r .. 2N - r) of ext = roll(ring, N); reversed rows r' = N-1-r
+    are the windows ext[1 + r' ..], a plain strided view."""
+    r_blocks, ks1, _ = rings.shape
+    kept = _kept_limbs(limb_drop)
+    limbs = torch.stack([(rings << (24 - 8 * m)) >> 24 for m in kept],
+                        dim=2).to(torch.int8)             # [R, k+1, L, 2N]
+    ext = torch.roll(limbs, n, dims=-1).contiguous()
+    nk = len(kept)
+    windows = ext.as_strided(
+        (r_blocks, n, ks1, nk, n), (ks1 * nk * 2 * n, 1, nk * 2 * n, 2 * n, 1),
+        storage_offset=ext.storage_offset() + 1)
+    return windows.flip(1).reshape(r_blocks * n, ks1 * nk * n)
+
+
+def build_tables(rings: torch.Tensor, n: int, limb_drop: int = 0, *,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """K1, the toeplitz RHS of one CMux step (build_tables_plain). `out`, when
+    given, is written in place: the blind rotation allocates it once and
+    reuses it every step."""
+    r_blocks, ks1 = rings.shape[:2]
+    nk = MxuPlan.N_LIMBS - limb_drop
+    shape = (r_blocks * n, ks1 * nk * n)
+    _check(rings, "rings", torch.int32, (r_blocks, ks1, 2 * n))
+    if out is not None:
+        _check(out, "out", torch.int8, shape)
+    if _on_cpu(rings, out):
+        res = build_tables_plain(rings, n, limb_drop)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int8, device=rings.device)
+    _check_kernel_operands(n, rings, out)
+    _cuda.launch("ctt_build_tables", rings, out, r_blocks, ks1, n, nk,
+                 limb_drop)
+    build_tables.launches += 1
+    return out
+
+
+build_tables.launches = 0
+
+
+def rotdig_plain(plan: MxuPlan, acc: torch.Tensor, a_hat: torch.Tensor):
+    """Digit matrix [B, R*N] int8 of (X^a_hat * acc - acc), acc [k+1, B, N]
+    int32, a_hat [B] int32 (read mod 2N)."""
+    rot = polynomial.negacyclic_monomial_mul(acc, a_hat[None, :])
+    return _digit_matrix(plan, rot - acc)
+
+
+def rotdig(plan: MxuPlan, acc: torch.Tensor, a_hat: torch.Tensor, *,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+    """K2, rotation + gadget digits of one CMux step (rotdig_plain)."""
+    ks1, b, n = acc.shape
+    shape = (b, plan.row_blocks * n)
+    _check(acc, "acc", torch.int32, (plan.glwe_size, b, plan.polynomial_size))
+    _check(a_hat, "a_hat", torch.int32, (b,))
+    if out is not None:
+        _check(out, "out", torch.int8, shape)
+    if _on_cpu(acc, a_hat, out):
+        res = rotdig_plain(plan, acc, a_hat)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.int8, device=acc.device)
+    if b:
+        _check_kernel_operands(n, acc, out)
+        _cuda.launch("ctt_rotdig", acc, a_hat, out, b, ks1, n, plan.base_log,
+                     plan.level, plan.n_sub)
+        rotdig.launches += 1
+    return out
+
+
+rotdig.launches = 0
+
+
+def rotdig_recombine_plain(plan: MxuPlan, s: torch.Tensor, acc: torch.Tensor,
+                           a_hat: torch.Tensor):
+    """(acc_new, d8): acc_new = acc + recombine_limb_planes(s) (wrapping),
+    d8 = rotdig_plain of acc_new."""
+    acc_new = acc + recombine_limb_planes(plan, s)
+    return acc_new, rotdig_plain(plan, acc_new, a_hat)
+
+
+def rotdig_recombine(plan: MxuPlan, s: torch.Tensor, acc: torch.Tensor,
+                     a_hat: torch.Tensor, *, acc_out: torch.Tensor | None = None,
+                     d8_out: torch.Tensor | None = None):
+    """K3, the previous step's limb recombine and accumulate folded into
+    this step's rotation + digits (rotdig_recombine_plain). `acc_out` may be
+    `acc` itself: the update is then made in place."""
+    ks1, b, n = acc.shape
+    _check(acc, "acc", torch.int32, (plan.glwe_size, b, plan.polynomial_size))
+    _check(s, "s", torch.int32, (b, ks1 * plan.limbs_used * n))
+    _check(a_hat, "a_hat", torch.int32, (b,))
+    if acc_out is not None:
+        _check(acc_out, "acc_out", torch.int32, acc.shape)
+    if d8_out is not None:
+        _check(d8_out, "d8_out", torch.int8, (b, plan.row_blocks * n))
+    if _on_cpu(s, acc, a_hat, acc_out, d8_out):
+        acc_new, d8 = rotdig_recombine_plain(plan, s, acc, a_hat)
+        if acc_out is not None:
+            acc_new = acc_out.copy_(acc_new)
+        if d8_out is not None:
+            d8 = d8_out.copy_(d8)
+        return acc_new, d8
+    if acc_out is None:
+        acc_out = torch.empty_like(acc)
+    if d8_out is None:
+        d8_out = torch.empty((b, plan.row_blocks * n), dtype=torch.int8,
+                             device=acc.device)
+    if b:
+        _check_kernel_operands(n, s, acc, acc_out, d8_out)
+        _cuda.launch("ctt_rotdig_recombine", s, acc, a_hat, acc_out, d8_out,
+                     b, ks1, n, plan.limbs_used, plan.limb_drop,
+                     plan.base_log, plan.level, plan.n_sub)
+        rotdig_recombine.launches += 1
+    return acc_out, d8_out
+
+
+rotdig_recombine.launches = 0
+
+KERNELS = (build_tables, rotdig, rotdig_recombine)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def reset_launch_counts():
+    for k in KERNELS:
+        k.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# blind rotation / bootstrap
+# ---------------------------------------------------------------------------
+
+
+def auto_defer(plan: MxuPlan, batch: int) -> bool:
+    """Run the dot-first deferred-recombine loop for this (plan, batch)?
+
+    The rule and its thresholds are the JAX package's crossover, measured
+    on a TPU v5e (concrete_tpu/core/bootstrap_mxu.py:auto_defer): defer once
+    the per-step dot output S passes ~100 MB, at batch >= 4096 or S >= 200
+    MB. The H100 crossover has not been measured yet.
+
+    >>> tpu128 = MxuPlan(lwe_dimension=630, glwe_size=5, polynomial_size=256,
+    ...     base_log=7, level=2, n_sub=1, ks_base_log=2, ks_level=6)
+    >>> [auto_defer(tpu128, b) for b in (2048, 4096, 8192)]
+    [False, False, True]
+    """
+    s_bytes = batch * plan.glwe_size * plan.limbs_used * \
+        plan.polynomial_size * 4
+    return s_bytes > 100e6 and (batch >= 4096 or s_bytes >= 200e6)
+
+
+def _step_buffers(plan: MxuPlan, b: int, device):
+    """The per-step d8 / RHS / S buffers, allocated once per rotation."""
+    n, r = plan.polynomial_size, plan.row_blocks
+    cols = plan.glwe_size * plan.limbs_used * n
+    d8 = torch.empty((b, r * n), dtype=torch.int8, device=device)
+    rhs = torch.empty((r * n, cols), dtype=torch.int8, device=device)
+    s = torch.zeros((b, cols), dtype=torch.int32, device=device)
+    return d8, rhs, s
+
+
+def _plain_scan(plan: MxuPlan, bsk_rings, acc, a_hats):
+    """One CMux step per mask element: digits, table, dot, recombine."""
+    d8, rhs, s = _step_buffers(plan, acc.shape[1], acc.device)
+    acc = acc.clone()
+    for i in range(a_hats.shape[0]):
+        rotdig(plan, acc, a_hats[i], out=d8)
+        build_tables(bsk_rings[i], plan.polynomial_size, plan.limb_drop,
+                     out=rhs)
+        acc += _toeplitz_matmul(plan, d8, rhs, out=s)
+    return acc
+
+
+def _deferred_scan(plan: MxuPlan, bsk_rings, acc, a_hats):
+    """The dot-first form: step j's dot output S is recombined inside step
+    j+1's digit kernel (K3). A first kernel call with S = 0 applies a_hat_0;
+    step j then consumes rings_j and a_hat_{j+1}, and the last step's dummy
+    a_hat = 0 rotates by X^0 (its digits are discarded)."""
+    d8, rhs, s = _step_buffers(plan, acc.shape[1], acc.device)
+    acc = acc.clone()
+    rotdig_recombine(plan, s, acc, a_hats[0], acc_out=acc, d8_out=d8)
+    a_next = torch.cat([a_hats[1:], torch.zeros_like(a_hats[:1])], dim=0)
+    for j in range(a_hats.shape[0]):
+        build_tables(bsk_rings[j], plan.polynomial_size, plan.limb_drop,
+                     out=rhs)
+        int_mm(d8, rhs, out=s)
+        rotdig_recombine(plan, s, acc, a_next[j], acc_out=acc, d8_out=d8)
+    return acc
+
+
+def blind_rotate_mxu(cfg: ServerConfig, bsk_rings: torch.Tensor,
+                     lut: torch.Tensor, lwe: torch.Tensor, *,
+                     ms_offset: int = 0, lut_count_log: int = 0):
+    """Blind rotation with the toeplitz-matmul CMux chain.
+
+    bsk_rings [n, R, k+1, 2N] int32 (bsk_to_mxu); lut [..., k+1, N];
+    lwe [..., n+1]. Returns the rotated accumulator [..., k+1, N],
+    bit-identical to concrete_tpu's blind_rotate_mxu."""
+    plan = MxuPlan.from_config(cfg)
+    n_lwe, N, ks1 = cfg.lwe_dimension, plan.polynomial_size, plan.glwe_size
+    if tuple(bsk_rings.shape) != (n_lwe, plan.row_blocks, ks1, 2 * N):
+        raise ValueError(f"bsk_rings: shape {tuple(bsk_rings.shape)} does "
+                         "not match the configuration")
+    if lwe.shape[-1] != n_lwe + 1 or tuple(lut.shape[-2:]) != (ks1, N):
+        raise ValueError("lwe / lut shapes do not match the configuration")
+    lead = lwe.shape[:-1]
+    lwe_flat = lwe.reshape(-1, n_lwe + 1)
+    b = lwe_flat.shape[0]
+    b_hat = pbs_modulus_switch(lwe_flat[:, -1], N, ms_offset, lut_count_log)
+    a_hats = pbs_modulus_switch(
+        lwe_flat[:, :-1], N, ms_offset, lut_count_log).T.contiguous()  # [n, B]
+    lut_b = lut.reshape(-1, ks1, N).expand(b, ks1, N)
+    acc = polynomial.negacyclic_monomial_div(
+        lut_b.permute(1, 0, 2), b_hat[None, :]).contiguous()      # [k+1, B, N]
+    scan = _deferred_scan if auto_defer(plan, b) else _plain_scan
+    acc = scan(plan, bsk_rings, acc, a_hats)
+    return acc.permute(1, 0, 2).reshape(lead + (ks1, N))
+
+
+def bootstrap_mxu(cfg: ServerConfig, bsk_rings, lut, lwe):
+    """Full PBS (fourier/mod.rs:878-911): [..., n+1] -> [..., k*N+1]."""
+    return sample_extract(blind_rotate_mxu(cfg, bsk_rings, lut, lwe))
+
+
+def bootstrap_many_lut_mxu(cfg: ServerConfig, bsk_rings, lut, lwe,
+                           lut_count_log: int, *, ms_offset: int = 0):
+    """Multi-LUT PBS: one blind rotation, 2^lut_count_log extractions ->
+    [2^lcl, ..., k*N+1]."""
+    acc = blind_rotate_mxu(cfg, bsk_rings, lut, lwe, ms_offset=ms_offset,
+                           lut_count_log=lut_count_log)
+    return torch.stack(
+        [sample_extract_nth(acc, t) for t in range(1 << lut_count_log)], dim=0)
+
+
+def bootstrap_keyswitch_mxu(cfg: ServerConfig, bsk_rings, ksk8, lut, lwe):
+    """PBS + keyswitch, the per-gate pipeline (server_key/mod.rs:133-166),
+    against an int8 limb-prepared keyswitch key (lwe.ksk_to_limbs)."""
+    big = bootstrap_mxu(cfg, bsk_rings, lut, lwe)
+    return lwe_ops.keyswitch_limbs(ksk8, big, base_log=cfg.ks_base_log,
+                                   level_count=cfg.ks_level)

@@ -1,0 +1,60 @@
+"""GLWE secret keys and encryption (crypto/secret/glwe.rs), client side.
+
+A GLWE ciphertext is [k+1, N] with the body polynomial last. Keys and
+ciphertexts are np.uint32; the mask-times-key products run through
+``math.polynomial.negacyclic_multisum`` (exact, float64).
+
+Example:
+    >>> import numpy as np
+    >>> sk = GlweSecretKey.generate_binary(2, 8, np.random.default_rng(1))
+    >>> sk.key.shape, sk.into_lwe_key().dimension
+    ((2, 8), 16)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..math import polynomial
+from ..torus import from_numpy, to_numpy
+
+
+@dataclasses.dataclass
+class GlweSecretKey:
+    """A GLWE secret key: [k, N] np.uint32 key polynomials (secret/glwe.rs:31)."""
+
+    key: np.ndarray
+
+    @property
+    def dimension(self) -> int:
+        return self.key.shape[0]
+
+    @property
+    def polynomial_size(self) -> int:
+        return self.key.shape[1]
+
+    @classmethod
+    def generate_binary(cls, dim: int, poly_size: int,
+                        rng: np.random.Generator):
+        """Uniform binary key drawn from `rng` (a numpy Generator, not the
+        JAX package's AES-CTR stream)."""
+        return cls(rng.integers(0, 2, size=(dim, poly_size), dtype=np.uint32))
+
+    def into_lwe_key(self):
+        """The flattened ("big") LWE key of dimension k*N (secret/glwe.rs:332),
+        which decrypts sample-extracted ciphertexts."""
+        from .lwe import LweSecretKey
+
+        return LweSecretKey(self.key.reshape(-1).copy())
+
+    def encrypt_from_randomness(self, masks: np.ndarray, noises: np.ndarray,
+                                msgs: np.ndarray) -> np.ndarray:
+        """Ciphertexts from pre-drawn randomness: masks [..., k, N], noises
+        and msgs [..., N] -> [..., k+1, N] with body = noise + sum_j a_j*s_j
+        + msg (secret/glwe.rs:488-516)."""
+        products = polynomial.negacyclic_multisum(
+            from_numpy(masks), from_numpy(self.key))
+        bodies = noises + to_numpy(products) + msgs
+        return np.concatenate([masks, bodies[..., None, :]], axis=-2)

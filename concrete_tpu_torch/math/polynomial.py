@@ -1,0 +1,69 @@
+"""Negacyclic polynomial operations (mod X^N + 1) on u32 torus tensors.
+
+A monomial product is a signed gather: coefficient c of X^d * p is
+p[(c - d) mod N], negated when (c - d) mod 2N >= N (X^N == -1). The JAX
+package writes the same product as a barrel of static rolls because its
+TPU compiler hung on dynamic rolls; the values are identical.
+
+Example (multiply by X: the wrapped coefficient is negated):
+    >>> import numpy as np
+    >>> from concrete_tpu_torch.torus import from_numpy, to_numpy
+    >>> poly = from_numpy(np.arange(4))
+    >>> to_numpy(negacyclic_monomial_mul(poly, 1)).tolist()
+    [4294967293, 0, 1, 2]
+    >>> to_numpy(negacyclic_monomial_div(negacyclic_monomial_mul(poly, 1), 1)).tolist()
+    [0, 1, 2, 3]
+    >>> key = torch.tensor([[0, 1, 0, 0]])               # X
+    >>> to_numpy(negacyclic_multisum(poly[None], key)).tolist()
+    [4294967293, 0, 1, 2]
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def negacyclic_monomial_mul(poly: torch.Tensor, degree) -> torch.Tensor:
+    """poly * X^degree mod (X^N + 1) (polynomial.rs:685-707).
+
+    poly: [..., N] int32; degree: int or integer tensor broadcastable against
+    poly.shape[:-1], read mod 2N."""
+    n = poly.shape[-1]
+    degree = torch.as_tensor(degree, dtype=torch.int64, device=poly.device)
+    lead = torch.broadcast_shapes(poly.shape[:-1], degree.shape)
+    src = (torch.arange(n, device=poly.device)
+           - degree.expand(lead)[..., None]) & (2 * n - 1)
+    vals = torch.gather(poly.expand(lead + (n,)), -1, src & (n - 1))
+    return torch.where(src >= n, -vals, vals)
+
+
+def negacyclic_monomial_div(poly: torch.Tensor, degree) -> torch.Tensor:
+    """poly * X^-degree mod (X^N + 1) (polynomial.rs:709-744)."""
+    degree = torch.as_tensor(degree, dtype=torch.int64, device=poly.device)
+    return negacyclic_monomial_mul(poly, -degree)
+
+
+def negacyclic_multisum(torus_polys: torch.Tensor, key: torch.Tensor):
+    """sum_j torus_polys[..., j, :] * key[j, :] mod (X^N + 1, 2^32), for a
+    binary or ternary key [k, N] (entries in {-1, 0, 1}).
+
+    Key generation's mask-times-key product. It is exact: the products are
+    computed in float64, where every partial sum stays below
+    k*N*2^32 <= 2^53 for k*N <= 2^21, and reduced mod 2^32 in int64."""
+    k, n = key.shape
+    if k * n > (1 << 21):
+        raise ValueError(f"k*N={k * n}: float64 sums would not stay exact")
+    if int(key.to(torch.int64).abs().max()) > 1:
+        raise ValueError("key entries must lie in {-1, 0, 1}")
+    dev = torus_polys.device
+    # M[j, i, :] = X^i * key_j, so (a_j * key_j) = sum_i a_j[i] M[j, i, :]
+    rows = torch.arange(n, device=dev)
+    mats = negacyclic_monomial_mul(
+        key.to(device=dev, dtype=torch.int32)[:, None, :], rows[None, :])
+    unsigned = torus_polys.to(torch.int64) & 0xFFFFFFFF
+    lead = torus_polys.shape[:-2]
+    prod = unsigned.reshape(-1, k * n).to(torch.float64) @ \
+        mats.reshape(k * n, n).to(torch.float64)
+    wrapped = prod.to(torch.int64) & 0xFFFFFFFF
+    return (wrapped - ((wrapped >> 31) << 32)).to(torch.int32).reshape(
+        lead + (n,))

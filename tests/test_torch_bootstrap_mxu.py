@@ -1,0 +1,261 @@
+"""The port's toeplitz ("mxu") bootstrap held bit for bit against
+concrete_tpu on the CPU: the key conversions, each kernel's plain PyTorch
+version against the JAX Pallas kernel run in interpret mode (as
+tests/test_bootstrap_mxu.py runs them), and the blind rotation in both
+loop forms, the PBS and the keyswitch against the JAX functions."""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from concrete_tpu.core import bootstrap as bs_jax
+from concrete_tpu.core import bootstrap_mxu as bsx_jax
+from concrete_tpu.core import lwe as lwe_jax
+from concrete_tpu_torch import torus
+from concrete_tpu_torch.core import bootstrap as bs_t
+from concrete_tpu_torch.core import bootstrap_mxu as bsx_t
+from concrete_tpu_torch.core import lwe as lwe_t
+from concrete_tpu_torch.math import polynomial as poly_t
+
+from common import TINY, TINY_K2
+
+
+def _u32(rng, shape):
+    return rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)
+
+
+def _t(x):
+    return torus.from_numpy(x)
+
+
+def _cfgs(params):
+    return (bs_jax.ServerConfig.from_boolean_parameters(params),
+            bs_t.ServerConfig.from_boolean_parameters(params))
+
+
+def _plan(ks1, n, bl, l, n_sub, drop=0):
+    return bsx_t.MxuPlan(lwe_dimension=4, glwe_size=ks1, polynomial_size=n,
+                         base_log=bl, level=l, n_sub=n_sub, ks_base_log=2,
+                         ks_level=3, limb_drop=drop)
+
+
+def _degrees(rng, n, b):
+    """Per-lane degrees, including 0, N, 2N-1 and 2N."""
+    return np.concatenate([rng.integers(0, 2 * n, size=b - 4),
+                           [0, n, 2 * n - 1, 2 * n]]).astype(np.int32)
+
+
+@pytest.mark.parametrize("params", [TINY, TINY_K2], ids=["tiny", "tiny_k2"])
+def test_plan_and_bsk_to_mxu_match_jax(params):
+    cfg_j, cfg_t = _cfgs(params)
+    pj, pt = bsx_jax.MxuPlan.from_config(cfg_j), bsx_t.MxuPlan.from_config(cfg_t)
+    assert (pt.row_blocks, pt.n_sub, pt.limbs_used) == \
+        (pj.row_blocks, pj.n_sub, pj.limbs_used)
+    rng = np.random.default_rng(1)
+    bsk = _u32(rng, (cfg_t.lwe_dimension, cfg_t.pbs_level, cfg_t.glwe_size,
+                     cfg_t.glwe_size, cfg_t.polynomial_size))
+    np.testing.assert_array_equal(bsx_t.bsk_to_mxu(bsk, cfg_t),
+                                  bsx_jax.bsk_to_mxu(bsk, cfg_j))
+
+
+def test_ksk_to_limbs_matches_jax():
+    rng = np.random.default_rng(2)
+    ksk = _u32(rng, (64, 3, 17))
+    ksk[0, 0, :4] = [0, 0x7F7F7F7F, 0x80808080, 0xFFFFFFFF]
+    np.testing.assert_array_equal(lwe_t.ksk_to_limbs(ksk),
+                                  lwe_jax.ksk_to_limbs(ksk))
+
+
+@pytest.mark.parametrize("r_blocks,ks1,n,drop", [(6, 2, 128, 0), (4, 5, 64, 0),
+                                                 (2, 3, 64, 1)])
+def test_build_tables_plain_matches_pallas(r_blocks, ks1, n, drop):
+    rng = np.random.default_rng(r_blocks * n)
+    rings = _u32(rng, (r_blocks, ks1, 2 * n))
+    with jax.enable_x64(False):
+        want = np.asarray(bsx_jax._build_tables_pallas(
+            r_blocks, ks1, n, 1, drop, interpret=True)(jnp.asarray(rings)))
+    got = bsx_t.build_tables_plain(_t(rings), n, drop)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("ks1,n,bl,l,n_sub", [(5, 64, 7, 2, 1), (2, 128, 7, 3, 1),
+                                              (3, 128, 8, 2, 2), (2, 64, 12, 2, 2)])
+def test_rotdig_plain_matches_pallas(ks1, n, bl, l, n_sub):
+    rng = np.random.default_rng(9 + n_sub)
+    b = 16
+    acc = _u32(rng, (ks1, b, n))
+    a_hat = _degrees(rng, n, b)
+    with jax.enable_x64(False):
+        kern = bsx_jax._rotdig_pallas(ks1, n, b, bl, l, n_sub, interpret=True)
+        want = np.asarray(kern(jnp.asarray(acc), jnp.asarray(a_hat)[:, None]))
+    got = bsx_t.rotdig_plain(_plan(ks1, n, bl, l, n_sub), _t(acc),
+                             torch.from_numpy(a_hat))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("ks1,n,bl,l,n_sub", [(5, 64, 7, 2, 1), (3, 128, 8, 2, 2)])
+def test_rotdig_recombine_plain_matches_pallas(ks1, n, bl, l, n_sub):
+    plan = _plan(ks1, n, bl, l, n_sub)
+    rng = np.random.default_rng(13 + n_sub)
+    b = 16
+    acc = _u32(rng, (ks1, b, n))
+    s = rng.integers(-(1 << 31), 1 << 31, size=(b, ks1 * plan.limbs_used * n),
+                     dtype=np.int64).astype(np.int32)
+    a_hat = _degrees(rng, n, b)
+    with jax.enable_x64(False):
+        kern = bsx_jax._rotdig_recombine_pallas(
+            ks1, n, b, bl, l, plan.limbs_used, 0, n_sub, interpret=True)
+        acc_want, d8_want = kern(jnp.asarray(s), jnp.asarray(acc),
+                                 jnp.asarray(a_hat)[:, None])
+    acc_got, d8_got = bsx_t.rotdig_recombine_plain(
+        plan, torch.from_numpy(s), _t(acc), torch.from_numpy(a_hat))
+    np.testing.assert_array_equal(torus.to_numpy(acc_got), np.asarray(acc_want))
+    np.testing.assert_array_equal(d8_got.numpy(), np.asarray(d8_want))
+
+
+def test_wrappers_take_plain_versions_on_cpu():
+    """On CPU tensors each wrapper returns its plain version's result (into
+    `out` when given) and launches no kernel."""
+    plan = _plan(3, 64, 8, 2, 2)
+    rng = np.random.default_rng(17)
+    b, n = 8, 64
+    rings, acc = _t(_u32(rng, (plan.row_blocks, 3, 2 * n))), _t(_u32(rng, (3, b, n)))
+    a_hat = torch.from_numpy(_degrees(rng, n, b))
+    s = torch.from_numpy(rng.integers(-(1 << 20), 1 << 20, size=(b, 3 * 4 * n),
+                                      dtype=np.int32))
+    bsx_t.reset_launch_counts()
+    rhs = torch.empty((plan.row_blocks * n, 3 * 4 * n), dtype=torch.int8)
+    assert bsx_t.build_tables(rings, n, out=rhs) is rhs
+    assert torch.equal(rhs, bsx_t.build_tables_plain(rings, n))
+    d8 = torch.empty((b, plan.row_blocks * n), dtype=torch.int8)
+    bsx_t.rotdig(plan, acc, a_hat, out=d8)
+    assert torch.equal(d8, bsx_t.rotdig_plain(plan, acc, a_hat))
+    acc_in = acc.clone()
+    acc_new, d8_new = bsx_t.rotdig_recombine(plan, s, acc_in, a_hat,
+                                             acc_out=acc_in, d8_out=d8)
+    acc_want, d8_want = bsx_t.rotdig_recombine_plain(plan, s, acc, a_hat)
+    assert acc_new is acc_in and torch.equal(acc_in, acc_want)
+    assert d8_new is d8 and torch.equal(d8, d8_want)
+    assert bsx_t.launch_counts() == {"build_tables": 0, "rotdig": 0,
+                                     "rotdig_recombine": 0}
+    with pytest.raises(TypeError):
+        bsx_t.rotdig(plan, acc, a_hat.to(torch.int64))
+    with pytest.raises(ValueError):
+        bsx_t.rotdig(plan, acc[:, :4], a_hat)
+
+
+def test_modulus_switch_and_sample_extract_match_jax():
+    rng = np.random.default_rng(19)
+    x = _u32(rng, (64, 17))
+    x[0, :4] = [0, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF]
+    for n, off, lcl in [(128, 0, 0), (256, 0, 0), (1024, 1, 2)]:
+        want = np.asarray(bs_jax.pbs_modulus_switch(jnp.asarray(x), n, off, lcl))
+        got = bs_t.pbs_modulus_switch(_t(x), n, off, lcl)
+        np.testing.assert_array_equal(got.numpy(), want)
+    glwe = _u32(rng, (2, 5, 3, 64))
+    np.testing.assert_array_equal(
+        torus.to_numpy(bs_t.sample_extract(_t(glwe))),
+        np.asarray(bs_jax.sample_extract(jnp.asarray(glwe))))
+    np.testing.assert_array_equal(
+        torus.to_numpy(bs_t.sample_extract_nth(_t(glwe), 3)),
+        np.asarray(bs_jax.sample_extract_nth(jnp.asarray(glwe), 3)))
+
+
+@pytest.mark.parametrize("params", [TINY, TINY_K2], ids=["tiny", "tiny_k2"])
+def test_keyswitch_limbs_matches_jax(params):
+    cfg_j, cfg_t = _cfgs(params)
+    rng = np.random.default_rng(23)
+    ksk = _u32(rng, (cfg_t.big_lwe_dimension, cfg_t.ks_level,
+                     cfg_t.lwe_dimension + 1))
+    ct = _u32(rng, (2, 5, cfg_t.big_lwe_dimension + 1))
+    ksk8 = lwe_jax.ksk_to_limbs(ksk)
+    want = np.asarray(lwe_jax.keyswitch_limbs(
+        jnp.asarray(ksk8), jnp.asarray(ct), base_log=cfg_t.ks_base_log,
+        level_count=cfg_t.ks_level))
+    got = lwe_t.keyswitch_limbs(torch.from_numpy(ksk8), _t(ct),
+                                base_log=cfg_t.ks_base_log,
+                                level_count=cfg_t.ks_level)
+    np.testing.assert_array_equal(torus.to_numpy(got), want)
+
+
+def _rotation_inputs(params, seed, b):
+    cfg_j, cfg_t = _cfgs(params)
+    rng = np.random.default_rng(seed)
+    bsk = _u32(rng, (cfg_t.lwe_dimension, cfg_t.pbs_level, cfg_t.glwe_size,
+                     cfg_t.glwe_size, cfg_t.polynomial_size))
+    rings = bsx_jax.bsk_to_mxu(bsk, cfg_j)
+    lwe = _u32(rng, (b, cfg_t.lwe_dimension + 1))
+    lwe[0, :] = 0xFFFFFFFF                       # degrees of exactly 2N
+    lut = _u32(rng, (cfg_t.glwe_size, cfg_t.polynomial_size))
+    return cfg_j, cfg_t, rings, lut, lwe
+
+
+@pytest.mark.parametrize("params", [TINY, TINY_K2], ids=["tiny", "tiny_k2"])
+def test_blind_rotate_both_loop_forms_match_jax(params):
+    """blind_rotate_mxu and each of its two loops (the plain scan and the
+    dot-first deferred scan, called directly) give the JAX accumulator."""
+    cfg_j, cfg_t, rings, lut, lwe = _rotation_inputs(params, 29, 6)
+    want = np.asarray(bsx_jax.blind_rotate_mxu(
+        cfg_j, jnp.asarray(rings), jnp.asarray(lut), jnp.asarray(lwe)))
+    got = bsx_t.blind_rotate_mxu(cfg_t, _t(rings), _t(lut), _t(lwe))
+    np.testing.assert_array_equal(torus.to_numpy(got), want)
+
+    plan = bsx_t.MxuPlan.from_config(cfg_t)
+    n = cfg_t.polynomial_size
+    lwe_t_ = _t(lwe)
+    b_hat = bs_t.pbs_modulus_switch(lwe_t_[:, -1], n)
+    a_hats = bs_t.pbs_modulus_switch(lwe_t_[:, :-1], n).T.contiguous()
+    acc0 = poly_t.negacyclic_monomial_div(
+        _t(lut)[:, None, :].expand(-1, lwe.shape[0], -1), b_hat[None, :]).contiguous()
+    for scan in (bsx_t._plain_scan, bsx_t._deferred_scan):
+        acc = scan(plan, _t(rings), acc0, a_hats)
+        np.testing.assert_array_equal(torus.to_numpy(acc.permute(1, 0, 2)), want)
+
+
+@pytest.mark.parametrize("params", [TINY, TINY_K2], ids=["tiny", "tiny_k2"])
+def test_bootstrap_keyswitch_matches_jax(params):
+    cfg_j, cfg_t, rings, lut, lwe = _rotation_inputs(params, 31, 5)
+    rng = np.random.default_rng(37)
+    ksk8 = lwe_jax.ksk_to_limbs(_u32(rng, (cfg_t.big_lwe_dimension, cfg_t.ks_level,
+                                            cfg_t.lwe_dimension + 1)))
+    want = np.asarray(bsx_jax.bootstrap_keyswitch_mxu(
+        cfg_j, jnp.asarray(rings), jnp.asarray(ksk8), jnp.asarray(lut),
+        jnp.asarray(lwe)))
+    got = bsx_t.bootstrap_keyswitch_mxu(cfg_t, _t(rings), torch.from_numpy(ksk8),
+                                        _t(lut), _t(lwe))
+    np.testing.assert_array_equal(torus.to_numpy(got), want)
+
+
+def test_many_lut_bootstrap_matches_jax():
+    cfg_j, cfg_t, rings, lut, lwe = _rotation_inputs(TINY_K2, 41, 4)
+    want = np.asarray(bsx_jax.bootstrap_many_lut_mxu(
+        cfg_j, jnp.asarray(rings), jnp.asarray(lut), jnp.asarray(lwe), 2))
+    got = bsx_t.bootstrap_many_lut_mxu(cfg_t, _t(rings), _t(lut), _t(lwe), 2)
+    np.testing.assert_array_equal(torus.to_numpy(got), want)
+
+
+def test_auto_defer_and_plan_limits_match_jax():
+    for p in (TINY, TINY_K2):
+        cfg_j, cfg_t = _cfgs(p)
+        pj, pt = bsx_jax.MxuPlan.from_config(cfg_j), bsx_t.MxuPlan.from_config(cfg_t)
+        for b in (1, 2048, 4096, 8192, 65536, 1 << 20):
+            assert bsx_t.auto_defer(pt, b) == bsx_jax.auto_defer(pj, b)
+    big = dataclasses.replace(_cfgs(TINY)[1], polynomial_size=8192)
+    with pytest.raises(NotImplementedError):
+        bsx_t.MxuPlan.from_config(big)
+
+
+def test_int_mm_is_exact():
+    rng = np.random.default_rng(43)
+    a = torch.from_numpy(rng.integers(-128, 128, size=(5, 2524), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-128, 128, size=(2524, 13), dtype=np.int8))
+    want = a.numpy().astype(np.int64) @ b.numpy().astype(np.int64)
+    np.testing.assert_array_equal(bsx_t.int_mm(a, b).numpy(), want)
+    out = torch.empty((5, 13), dtype=torch.int32)
+    assert bsx_t.int_mm(a, b, out=out) is out
+    np.testing.assert_array_equal(out.numpy(), want)
