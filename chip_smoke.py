@@ -7,16 +7,29 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
 
   build   compile csrc/mxu_kernels.cu for sm_90a (concrete_tpu_torch/_build/).
   A       each hand-written kernel against its plain PyTorch version on the
-          card, at the shapes of the main path, bit for bit, with both
-          device times (CUDA graph replay between CUDA events).
-  B       a boolean-gate server at full width: for TPU128, DEFAULT and
-          TFHE_LIB parameters, key generation from fixed seeds, warmup of
-          the batch tiers, then requests of mixed sizes through AND, XOR,
-          NAND and MUX, every row decrypted against its truth table; 32 rows
-          of one TPU128 AND request recomputed through the port on the CPU
-          must match the card bit for bit; every kernel's launch count over
-          this phase must be > 0; the median time of 5 gate calls per
-          (parameters, tier).
+          card, at the shapes of the main paths, bit for bit, with both
+          device times (CUDA graph replay between CUDA events) and the
+          least time the card could take for the same work.
+  B       a boolean-gate server at full width (u32 torus): for TPU128,
+          DEFAULT and TFHE_LIB parameters, key generation from fixed seeds,
+          warmup of the batch tiers, then requests of mixed sizes through
+          AND, XOR, NAND and MUX, every row decrypted against its truth
+          table; a TFHE_LIB fast-mode key (levels=2) through AND and XOR;
+          32 rows of one TPU128 AND request recomputed through the port on
+          the CPU must match the card bit for bit; every u32 kernel's launch
+          count over this phase must be > 0; the median time of 5 gate calls
+          per (parameters, tier).
+  C       the high-level API at the full width of examples/int4_lut.py (u64
+          torus: LWE128_630, RLWE128_1024_1, PBS base_log 7 level 3, KSK
+          base_log 2 level 8): 2048 encrypted 4-bit values through the LUT
+          x -> (3x + 1) mod 16, exact and in fast mode (limb_drop=2), then
+          keyswitched back to the small key; one multi-LUT call with two
+          functions; every PBS output row must decode right under the big
+          key, and the keyswitched rows must match the noise model (phase
+          std and wrong-row rate, see phase_c); the first 16 CMux steps for
+          32 rows and 64 keyswitched rows recomputed on the CPU must match
+          the card bit for bit; build_tables and rotdig64 must launch; the
+          median time of 5 PBS calls (exact and fast) and of a keyswitch.
 
 The last lines are the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line and {"ok": true, "device": {...}}. Any failure
@@ -25,7 +38,9 @@ raises, so the exit code is non-zero and no result line is printed.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -33,9 +48,11 @@ import time
 import numpy as np
 import torch
 
-from concrete_tpu_torch import boolean, torus
+from concrete_tpu_torch import boolean, highlevel as hl, torus
 from concrete_tpu_torch.core import bootstrap as bs
 from concrete_tpu_torch.core import bootstrap_mxu as bsx
+from concrete_tpu_torch.core import lwe as lwe_ops
+from concrete_tpu_torch.highlevel.lwe import _accumulator, generate_functional_lut
 from concrete_tpu_torch.ops import _cuda
 from concrete_tpu_torch.params import (
     DEFAULT_PARAMETERS,
@@ -52,8 +69,21 @@ GATES = ("and_", "xor", "nand", "mux")
 SOURCE = "concrete_tpu_torch/csrc/mxu_kernels.cu"
 REPLACES = {"build_tables": "concrete_tpu/core/bootstrap_mxu.py:238",
             "rotdig": "concrete_tpu/core/bootstrap_mxu.py:449",
-            "rotdig_recombine": "concrete_tpu/core/bootstrap_mxu.py:599"}
+            "rotdig_recombine": "concrete_tpu/core/bootstrap_mxu.py:599",
+            "rotdig64": "concrete_tpu/core/bootstrap_mxu.py:531"}
+# the kernels each main path must launch (phase B: u32 gates, C: u64 PBS)
+PATH_KERNELS = {"B": ("build_tables", "rotdig", "rotdig_recombine"),
+                "C": ("build_tables", "rotdig64")}
 CPU_ROWS = 32
+# the H100 SXM's published peaks: HBM bytes/s, and its float32 non-tensor
+# rate, taken for the kernels' integer ALU work
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+# phase C: examples/int4_lut.py at the JAX suite's batch
+INT4 = {"lwe": hl.LWE128_630, "rlwe": hl.RLWE128_1024_1, "pbs": (7, 3),
+        "ks": (2, 8), "batch": 2048}
+CPU_STEPS = 16
+KS_CPU_ROWS = 64
 
 
 def log(**fields):
@@ -99,14 +129,26 @@ def max_abs_err(got, want) -> int:
 
 
 def kernel_cases(dev):
-    """(kernel, label, run the kernel, run its plain version) at the main
-    path's shapes: one CMux step's table per preset, the digit kernel at
-    B=2048 per preset, the deferred kernel at the TPU128 B=8192 tier."""
+    """(kernel, label, run the kernel, run its plain version, the inputs it
+    reads) at the main paths' shapes: one CMux step's table per preset and
+    for the u64 int4 configuration (limb_drop 0 and 2), the digit kernel at
+    B=2048 per preset, the deferred kernel at the TPU128 B=8192 tier, and
+    the u64 digit kernel at the int4 shape plus three wider gadgets (n_sub
+    2, the non_rep == 32 edge, a 48-bit prefix)."""
     rng = np.random.default_rng(0)
 
     def u32(shape):
         return torus.from_numpy(
             rng.integers(0, 1 << 32, size=shape, dtype=np.uint32), dev)
+
+    def u64(shape):
+        """Random u64 words, the first rows seeded with word-boundary
+        values (tests/test_bootstrap_mxu.py)."""
+        acc = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
+        acc[0, 0, :4] = [0, 1, 0xFFFF_FFFF, 0x1_0000_0000]
+        acc[0, 1, :4] = [0xFFFF_FFFF_FFFF_FFFF, 0x8000_0000,
+                         0x7FFF_FFFF_FFFF_FFFF, 0x8000_0000_0000_0000]
+        return torus.from_numpy(acc, dev)
 
     def degrees(n, b):
         return torch.from_numpy(
@@ -120,28 +162,70 @@ def kernel_cases(dev):
         rhs = torch.empty((r * n, ks1 * 4 * n), dtype=torch.int8, device=dev)
         cases.append(("build_tables", f"{name} one step",
                       lambda rings=rings, n=n, rhs=rhs: bsx.build_tables(rings, n, out=rhs),
-                      lambda rings=rings, n=n: bsx.build_tables_plain(rings, n)))
+                      lambda rings=rings, n=n: bsx.build_tables_plain(rings, n),
+                      (rings,)))
         b = 2048
         acc, a_hat = u32((ks1, b, n)), degrees(n, b)
         d8 = torch.empty((b, r * n), dtype=torch.int8, device=dev)
         cases.append(("rotdig", f"{name} B={b} n_sub={plan.n_sub}",
                       lambda p=plan, acc=acc, a=a_hat, d8=d8: bsx.rotdig(p, acc, a, out=d8),
-                      lambda p=plan, acc=acc, a=a_hat: bsx.rotdig_plain(p, acc, a)))
+                      lambda p=plan, acc=acc, a=a_hat: bsx.rotdig_plain(p, acc, a),
+                      (acc, a_hat)))
     plan = bsx.MxuPlan.from_config(
         bs.ServerConfig.from_boolean_parameters(TPU128_PARAMETERS))
     n, ks1, b = plan.polynomial_size, plan.glwe_size, 8192
     s, acc, a_hat = u32((b, ks1 * 4 * n)), u32((ks1, b, n)), degrees(n, b)
     cases.append(("rotdig_recombine", f"TPU128 B={b}",
-                  lambda: bsx.rotdig_recombine(plan, s, acc, a_hat),
-                  lambda: bsx.rotdig_recombine_plain(plan, s, acc, a_hat)))
+                  lambda p=plan, s=s, acc=acc, a=a_hat: bsx.rotdig_recombine(p, s, acc, a),
+                  lambda p=plan, s=s, acc=acc, a=a_hat: bsx.rotdig_recombine_plain(p, s, acc, a),
+                  (s, acc, a_hat)))
+    n, b = INT4["rlwe"].polynomial_size, INT4["batch"]
+    for bl, lv in [INT4["pbs"], (10, 3), (16, 2), (16, 3)]:
+        plan = bsx.MxuPlan.from_config(_int4_config(bl, lv))
+        acc, a_hat = u64((plan.glwe_size, b, n)), degrees(n, b)
+        d8 = torch.empty((b, plan.row_blocks * n), dtype=torch.int8, device=dev)
+        cases.append((
+            "rotdig64", f"int4 B={b} bl={bl} l={lv} n_sub={plan.n_sub}",
+            lambda p=plan, acc=acc, a=a_hat, d8=d8: bsx.rotdig64(p, acc, a, out=d8),
+            lambda p=plan, acc=acc, a=a_hat: bsx.rotdig64_plain(p, acc, a),
+            (acc, a_hat)))
+    for drop in (0, 2):
+        plan = bsx.MxuPlan.from_config(_int4_config(*INT4["pbs"], drop))
+        rings = u32((plan.row_blocks, plan.glwe_size * 2, 2 * n))
+        rhs = torch.empty((plan.row_blocks * n, plan.glwe_size * plan.limbs_used * n),
+                          dtype=torch.int8, device=dev)
+        cases.append((
+            "build_tables", f"int4 u64 one step limb_drop={drop}",
+            lambda rings=rings, d=drop, rhs=rhs: bsx.build_tables(rings, n, d, 2, out=rhs),
+            lambda rings=rings, d=drop: bsx.build_tables_plain(rings, n, d, 2),
+            (rings,)))
     return cases
+
+
+def _int4_config(base_log, level, drop=0) -> bs.ServerConfig:
+    return bs.ServerConfig(
+        lwe_dimension=INT4["lwe"].dimension, glwe_dimension=INT4["rlwe"].dimension,
+        polynomial_size=INT4["rlwe"].polynomial_size, pbs_base_log=base_log,
+        pbs_level=level, ks_base_log=INT4["ks"][0], ks_level=INT4["ks"][1],
+        bits=64, mxu_limb_drop=drop)
+
+
+def bound_ms(inputs, outputs) -> tuple[float, str]:
+    """The least time the card could take: each input read once and each
+    output written once at the HBM rate, against one ALU operation per
+    output element (a lower bound on the work) at the peak rate."""
+    moved = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    ops = sum(t.numel() for t in outputs)
+    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
 
 
 def phase_a(dev, card):
     """Every kernel equal to its plain version; returns the headline row
     per kernel (its first case) for the kernels line."""
     rows = {}
-    for kernel, label, run, plain in kernel_cases(dev):
+    for kernel, label, run, plain, inputs in kernel_cases(dev):
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
@@ -152,9 +236,13 @@ def phase_a(dev, card):
             raise AssertionError(f"{kernel} ({label}) differs from its plain "
                                  f"version, max |err| = {err}")
         ms, plain_ms = time_ms(run), time_ms(plain)
+        bound, bound_by = bound_ms(inputs, got if isinstance(got, tuple)
+                                   else (got,))
         log(phase="A", kernel=kernel, shape=label, equal=True, max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, card=card)
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+            card=card)
         row = rows.setdefault(kernel, {"ms": ms, "plain_ms": plain_ms,
+                                       "bound_ms": bound, "bound_by": bound_by,
                                        "max_abs_err": 0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
     return rows
@@ -222,9 +310,207 @@ def phase_b(dev, card):
                 ms_per_call=med * 1e3, gates_per_s=tier / med,
                 deferred=bsx.auto_defer(bsx.MxuPlan.from_config(sks.cfg), tier),
                 card=card)
+        if name == "TFHE_LIB":
+            fast_mode_request(cks, sks, card)
         del sks
         torch.cuda.empty_cache()
     return cpu_check
+
+
+# device kernels by name, as the profiler shows them (demangled): ours,
+# then the int8 GEMM that torch._int_mm runs
+_KERNEL_KINDS = (("build_tables", "K1 build_tables"),
+                 ("rotdig_recombine", "K3 rotdig_recombine"),
+                 ("rotdig_kernel<unsigned long", "K4 rotdig64"),
+                 ("rotdig_kernel<unsigned int", "K2 rotdig"),
+                 ("gemm", "int8 GEMM"), ("cutlass", "int8 GEMM"))
+
+
+def profile_call(label: str, fn, card):
+    """One call of `fn` under torch.profiler: device time summed by kernel
+    kind, and the device idle share of the call's wall time (the profiler
+    adds host overhead, so the idle share is an upper bound)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kinds = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = next((k for pat, k in _KERNEL_KINDS if pat in evt.key),
+                    "other (torch elementwise, copies)")
+        kinds[kind] = kinds.get(kind, 0.0) + evt.self_device_time_total / 1e3
+    busy = sum(kinds.values())
+    log(phase="profile", cell=label, wall_ms=wall_ms, device_ms=busy,
+        idle_share=1.0 - busy / wall_ms,
+        device_ms_by_kind=dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+        card=card)
+
+
+def median_s(fn, reps: int = 5) -> float:
+    """Median host seconds of `reps` synchronised calls."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def fast_mode_request(cks, sks, card):
+    """One 2048-row request through a fast-mode (levels=2) twin of the
+    TFHE_LIB key, AND and XOR checked on their truth tables, AND timed."""
+    fast = sks.with_fast_mode()
+    fast.warmup([2048])
+    (a, b, c), (ca, cb, cc) = encrypt_bools(cks, 2048, 3000)
+    for gate in ("and_", "xor"):
+        if not np.array_equal(cks.decrypt(call_gate(fast, gate, ca, cb, cc)),
+                              truth(gate, a, b, c)):
+            raise AssertionError(f"TFHE_LIB fast mode {gate}: wrong truth table")
+    ca, cb = torus.from_numpy(ca, sks.device), torus.from_numpy(cb, sks.device)
+    med = median_s(lambda: fast.and_(ca, cb))
+    log(phase="B", params="TFHE_LIB fast (levels=2)", tier=2048,
+        gates=["and_", "xor"], truth_tables="ok", ms_per_call=med * 1e3,
+        gates_per_s=2048 / med, card=card)
+    profile_call("TFHE_LIB fast (levels=2) AND B=2048",
+                 lambda: fast.and_(ca, cb), card)
+
+
+def int4_table(x) -> float:
+    return float((3 * int(round(x)) + 1) % 16)
+
+
+def check_keyswitched(label, ks, sk, enc, want, card):
+    """The keyswitched rows against the noise model. With the example's
+    keyswitch key (base_log 2, level 8, output noise 2^-14) the NPE puts
+    the phase std near 2^-7.1 against a half message spacing of 2^-6, so a
+    few percent of rows decode wrong by design: the check is that the
+    measured phase-error std lies within [0.5, 1.5] of the std the API
+    tracks (VectorLWE.variances), and that the wrong rows are at most twice
+    the Gaussian tail that std predicts, plus 0.5%."""
+    err = (sk.inner.decrypt(ks.data) - enc.encode_core(want)).view(np.int64)
+    measured = float(np.std(err * 2.0 ** -64))
+    tracked = math.sqrt(float(ks.variances[0]))
+    half = 2.0 ** -(enc.nb_bit_precision + enc.nb_bit_padding + 1)
+    p_row = math.erfc(half / tracked / math.sqrt(2.0))
+    wrong = int(np.sum(np.round(ks.decrypt_decode(sk)) != want))
+    log(phase="C", pbs=label, stage="keyswitch", rows=len(want),
+        phase_std=measured, tracked_std=tracked, std_ratio=measured / tracked,
+        wrong_rows=wrong, expected_wrong_rows=p_row * len(want), card=card)
+    if not (0.5 <= measured / tracked <= 1.5
+            and wrong <= (2 * p_row + 0.005) * len(want)):
+        raise AssertionError(f"{label}: keyswitched rows disagree with the "
+                             "noise model")
+
+
+def phase_c(dev, card):
+    """The int4 LUT through the high-level API at full width (u64 torus).
+    Returns the kernel launches of its main path."""
+    (bl, lv), (ks_bl, ks_l), b = INT4["pbs"], INT4["ks"], INT4["batch"]
+    t0 = time.perf_counter()
+    sk = hl.LWESecretKey.new(INT4["lwe"], secret_seed=21)
+    rsk = hl.RLWESecretKey.new(INT4["rlwe"], secret_seed=22)
+    big = rsk.to_lwe_secret_key()
+    bsk = hl.LWEBSK.new(sk, rsk, bl, lv, mask_seed=23, noise_seed=24,
+                        device=dev)
+    ksk = hl.LWEKSK.new(big, sk, ks_bl, ks_l, mask_seed=25, noise_seed=26,
+                        device=dev)
+    keygen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bsk.bsk_mxu, ksk.limbs  # noqa: B018 - evaluation keys onto the card
+    torch.cuda.synchronize()
+    log(phase="C", keygen_s=keygen_s, key_prep_s=time.perf_counter() - t0)
+
+    enc = hl.Encoder.new(0.0, 15.0, nb_bit_precision=4, nb_bit_padding=1)
+    xs = np.random.default_rng(27).integers(0, 16, size=b).astype(np.float64)
+    want = (3 * xs + 1) % 16
+    v = hl.VectorLWE.encode_encrypt(sk, xs, enc, mask_seed=28, noise_seed=29)
+    fast = bsk.with_fast_mode(limb_drop=2)
+    # the multi-LUT rounds every rotation to a multiple of 2, which doubles
+    # the modulus-switch error: 3-bit messages keep it 6 sigma inside the box
+    enc3 = hl.Encoder.new(0.0, 7.0, nb_bit_precision=3, nb_bit_padding=1)
+    x3 = xs % 8
+    fns = [lambda x: float((int(round(x)) + 3) % 8),
+           lambda x: float(7 - int(round(x)))]
+    want3 = [(x3 + 3) % 8, 7 - x3]
+    ct3 = hl.LWE.encode_encrypt(sk, x3, enc3, mask_seed=30, noise_seed=31)
+
+    t0 = time.perf_counter()
+    bsx.reset_launch_counts()
+    outs = {}
+    for label, key in (("exact", bsk), ("drop2", fast)):
+        out = v.bootstrap_all_with_function(key, int4_table, enc)
+        outs[label] = (out, out.keyswitch(ksk))
+    multi = ct3.bootstrap_with_functions(bsk, fns, enc3)
+    torch.cuda.synchronize()
+    launches = bsx.launch_counts()
+    log(phase="C", main_path_s=time.perf_counter() - t0, launches=launches)
+
+    for label, (out, ks) in outs.items():
+        wrong = int(np.sum(np.round(out.decrypt_decode(big)) != want))
+        err = (big.inner.decrypt(out.data) - enc.encode_core(want)).view(np.int64)
+        log(phase="C", pbs=label, stage="pbs", rows=b, wrong_rows=wrong,
+            phase_std=float(np.std(err * 2.0 ** -64)),
+            tracked_std=math.sqrt(float(out.variances[0])), card=card)
+        if wrong:
+            raise AssertionError(f"int4 LUT ({label}): {wrong} of {b} PBS "
+                                 "rows decode wrong")
+        check_keyswitched(label, ks, sk, enc, want, card)
+    for t, (out, w) in enumerate(zip(multi, want3)):
+        if not np.array_equal(np.round(out.decrypt_decode(big)), w):
+            raise AssertionError(f"multi-LUT function {t} decodes wrong")
+    log(phase="C", multi_lut_functions=len(fns), rows=b, decoded="ok")
+
+    acc = torus.from_numpy(
+        _accumulator(bsk, generate_functional_lut(bsk, enc, enc, int4_table)),
+        dev)
+    cts = torus.from_numpy(v.data, dev)
+    for label, key in (("exact", bsk), ("drop2", fast)):
+        med = median_s(lambda key=key: key.run_bootstrap(acc, cts))
+        log(phase="C", pbs=label, batch=b, ms_per_call=med * 1e3,
+            pbs_per_s=b / med, card=card)
+        profile_call(f"int4 PBS {label} B={b}",
+                     lambda key=key: key.run_bootstrap(acc, cts), card)
+    big_ct = bsk.run_bootstrap(acc, cts)
+    med = median_s(lambda: ksk.run_keyswitch(big_ct))
+    log(phase="C", keyswitch=f"{big.dimension}->{sk.dimension}", batch=b,
+        ms_per_call=med * 1e3, card=card)
+    profile_call(f"int4 keyswitch B={b}", lambda: ksk.run_keyswitch(big_ct),
+                 card)
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(bsk.cfg, lwe_dimension=CPU_STEPS)
+    rows = v.data[:CPU_ROWS]
+    lwe = np.concatenate([rows[:, :CPU_STEPS], rows[:, -1:]], axis=1)
+    rings = bsk.bsk_mxu[:CPU_STEPS]
+    on_card = bsx.blind_rotate_mxu(cfg, rings, acc,
+                                   torus.from_numpy(lwe, dev)).cpu()
+    on_cpu = bsx.blind_rotate_mxu(cfg, rings.cpu(), acc.cpu(),
+                                  torus.from_numpy(lwe))
+    out, ks = outs["exact"]
+    ks_cpu = lwe_ops.keyswitch_limbs(
+        ksk.limbs.cpu(), torus.from_numpy(out.data[:KS_CPU_ROWS]),
+        base_log=ks_bl, level_count=ks_l)
+    if not (torch.equal(on_card, on_cpu) and
+            np.array_equal(torus.to_numpy(ks_cpu), ks.data[:KS_CPU_ROWS])):
+        raise AssertionError("CPU recomputation differs from the card")
+    log(phase="cpu_check", params="int4", cmux_steps=CPU_STEPS, rows=CPU_ROWS,
+        keyswitch_rows=KS_CPU_ROWS, bit_identical=True,
+        seconds=time.perf_counter() - t0)
+    return launches
+
+
+def check_launched(path: str, launches: dict):
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"phase {path} never launched {missing}")
 
 
 def main():
@@ -252,11 +538,10 @@ def main():
     t0 = time.perf_counter()
     bsx.reset_launch_counts()
     cpu_check = phase_b(dev, card)
-    launches = bsx.launch_counts()
-    log(phase="B", seconds=time.perf_counter() - t0, launches=launches)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
+    path_launches = {"B": bsx.launch_counts()}
+    log(phase="B", seconds=time.perf_counter() - t0,
+        launches=path_launches["B"])
+    check_launched("B", path_launches["B"])
 
     t0 = time.perf_counter()
     sks, ca, cb, want = cpu_check
@@ -265,13 +550,24 @@ def main():
         raise AssertionError("CPU recomputation differs from the card")
     log(phase="cpu_check", rows=CPU_ROWS, params="TPU128", gate="and_",
         bit_identical=True, seconds=time.perf_counter() - t0)
+    del sks, cpu_check
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    path_launches["C"] = phase_c(dev, card)
+    log(phase="C", seconds=time.perf_counter() - t0)
+    check_launched("C", path_launches["C"])
     log(phase="all", seconds=time.perf_counter() - t_all)
 
+    launches = {k: sum(counts[k] for path, counts in path_launches.items()
+                       if k in PATH_KERNELS[path]) for k in REPLACES}
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
          "launches": launches[k], "max_abs_err": rows[k]["max_abs_err"],
-         "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"]}
+         "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"],
+         "bound_ms": rows[k]["bound_ms"], "bound_by": rows[k]["bound_by"],
+         "library_ms": None}
         for k in REPLACES]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,7 @@ def gen_keys(parameters: BooleanParameters = DEFAULT_PARAMETERS, *,
              noise_seed: int | None = None, device=None):
     """Generate a (client, server) key pair (concrete-boolean/src/lib.rs:96);
     fixing all three seeds makes key generation reproducible. The server key
-    lives on `device` (default: the GPU when there is one, else the CPU).
+    lives on `device` (default: the GPU; without one, pass device="cpu").
 
     >>> from concrete_tpu_torch.params import BooleanParameters
     >>> from concrete_tpu_torch.dispersion import StandardDev

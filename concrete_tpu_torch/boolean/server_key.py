@@ -58,8 +58,9 @@ _GATE_LIN = {
 }
 
 
-def _default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+# the ServerConfig fields of the npz key format (u32 torus, exact)
+_SAVED_CONFIG = ("lwe_dimension", "glwe_dimension", "polynomial_size",
+                 "pbs_base_log", "pbs_level", "ks_base_log", "ks_level")
 
 
 @dataclasses.dataclass
@@ -72,7 +73,7 @@ class ServerKey:
     ksk: np.ndarray               # [k*N, l_ks, n+1] np.uint32
     cfg: bs.ServerConfig
     bsk_standard: np.ndarray      # [n, l, k+1, k+1, N] np.uint32
-    device: torch.device | str | None = None   # None: the GPU if present
+    device: torch.device | str | None = None   # None: the GPU (required)
     _bsk_mxu: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     _ksk8: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     # batch tiers run by warmup(); _pad_size pads smaller requests up to them
@@ -81,8 +82,7 @@ class ServerKey:
 
     def __post_init__(self):
         c = self.cfg
-        self.device = (torch.device(self.device) if self.device is not None
-                       else _default_device())
+        self.device = _cuda.resolve_device(self.device)
         bsk_shape = (c.lwe_dimension, c.pbs_level, c.glwe_size, c.glwe_size,
                      c.polynomial_size)
         ksk_shape = (c.big_lwe_dimension, c.ks_level, c.lwe_dimension + 1)
@@ -148,20 +148,16 @@ class ServerKey:
 
     def save(self, path: str):
         """Serialize in the npz format of concrete_tpu's ServerKey.save."""
-        c = self.cfg
         np.savez_compressed(
             path, bsk=self.bsk_standard, ksk=self.ksk,
-            lwe_dimension=c.lwe_dimension, glwe_dimension=c.glwe_dimension,
-            polynomial_size=c.polynomial_size, pbs_base_log=c.pbs_base_log,
-            pbs_level=c.pbs_level, ks_base_log=c.ks_base_log,
-            ks_level=c.ks_level)
+            **{name: getattr(self.cfg, name) for name in _SAVED_CONFIG})
 
     @classmethod
     def load(cls, path: str, *, device=None) -> "ServerKey":
         """Read a key written by `save` or by concrete_tpu's ServerKey.save."""
         with np.load(path, allow_pickle=False) as d:
-            cfg = bs.ServerConfig(**{
-                f.name: int(d[f.name]) for f in dataclasses.fields(bs.ServerConfig)})
+            cfg = bs.ServerConfig(**{name: int(d[name])
+                                     for name in _SAVED_CONFIG})
             return cls(ksk=d["ksk"].astype(np.uint32), cfg=cfg,
                        bsk_standard=d["bsk"].astype(np.uint32), device=device)
 
@@ -172,6 +168,20 @@ class ServerKey:
         return dataclasses.replace(
             self, device=torch.device(device), _bsk_mxu=move(self._bsk_mxu),
             _ksk8=move(self._ksk8), _warmed_tiers=set())
+
+    def with_fast_mode(self, *, limb_drop: int = 0,
+                       levels: int | None = 2) -> "ServerKey":
+        """A reduced-precision twin over the same key material, as
+        concrete_tpu's ServerKey.with_fast_mode: ``levels`` keeps only the
+        most significant PBS decomposition levels (the bootstrap key is
+        sliced), ``limb_drop`` rounds the bootstrap-key operand of the
+        toeplitz product (which the JAX package advises against on the u32
+        torus). The keyswitch key, client keys and ciphertexts are
+        unchanged."""
+        cfg = self.cfg.with_fast_mode(limb_drop=limb_drop, levels=levels)
+        return dataclasses.replace(
+            self, cfg=cfg, bsk_standard=self.bsk_standard[:, :cfg.pbs_level],
+            _bsk_mxu=None, _warmed_tiers=set())
 
     # -- batching ------------------------------------------------------------
 

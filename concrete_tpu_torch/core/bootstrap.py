@@ -2,13 +2,23 @@
 configuration, the modulus switch to Z_2N, sample extraction and the
 boolean gates' constant test polynomial (crypto/bootstrap/fourier/mod.rs).
 
-u32 torus only; values ride int32 tensors (see ``concrete_tpu_torch.torus``).
+u32 torus values ride int32 tensors and u64 ones int64 tensors (see
+``concrete_tpu_torch.torus``).
 
 Example (modulus switch to the 2N grid: 1/2 of the torus -> 8 of 16):
     >>> import numpy as np
     >>> from concrete_tpu_torch.torus import from_numpy
     >>> pbs_modulus_switch(from_numpy([1 << 31]), 8).tolist()
     [8]
+    >>> pbs_modulus_switch(from_numpy(np.array([1 << 63], np.uint64)), 8).tolist()
+    [8]
+
+A reduced-precision view of one configuration (the same keys):
+    >>> cfg = ServerConfig(lwe_dimension=8, glwe_dimension=1, polynomial_size=64,
+    ...     pbs_base_log=7, pbs_level=3, ks_base_log=2, ks_level=8, bits=64)
+    >>> fast = cfg.with_fast_mode(limb_drop=2)
+    >>> fast.pbs_level, fast.mxu_limb_drop
+    (3, 2)
 """
 
 from __future__ import annotations
@@ -19,12 +29,19 @@ import torch
 
 from ..math import polynomial
 from ..params import BooleanParameters
-from ..torus import as_torus, lshr
+from ..torus import as_torus, bits_of, carrier, lshr
 
 
 @dataclasses.dataclass(frozen=True)
 class ServerConfig:
-    """Static configuration of the server-side ops (u32 torus)."""
+    """Static configuration of the server-side ops: the u32 (boolean) or
+    u64 (high-level) torus.
+
+    ``mxu_limb_drop`` drops that many low byte limbs of the bootstrap key
+    operand of the toeplitz external product: every key coefficient is
+    rounded to a multiple of 2^(8 * drop), an unbiased error that enters the
+    PBS noise like extra bootstrap-key noise (npe.estimate_mxu_truncation_noise).
+    0 is exact."""
 
     lwe_dimension: int
     glwe_dimension: int
@@ -33,6 +50,14 @@ class ServerConfig:
     pbs_level: int
     ks_base_log: int
     ks_level: int
+    bits: int = 32
+    mxu_limb_drop: int = 0
+
+    def __post_init__(self):
+        if not (0 <= self.mxu_limb_drop <= self.bits // 8 - 2):
+            raise ValueError(
+                f"mxu_limb_drop={self.mxu_limb_drop}: must keep >= 2 of the "
+                f"{self.bits // 8} bootstrap-key byte limbs")
 
     @classmethod
     def from_boolean_parameters(cls, p: BooleanParameters) -> "ServerConfig":
@@ -45,6 +70,17 @@ class ServerConfig:
             ks_base_log=p.ks_base_log,
             ks_level=p.ks_level,
         )
+
+    def with_fast_mode(self, *, limb_drop: int = 1,
+                       levels: int | None = None) -> "ServerConfig":
+        """A reduced-precision view over the same key material: ``levels``
+        (<= pbs_level) keeps only the most significant decomposition levels
+        (the bootstrap key is sliced to match), ``limb_drop`` sets
+        mxu_limb_drop. Ciphertexts and client keys are unchanged."""
+        lv = self.pbs_level if levels is None else levels
+        if not (1 <= lv <= self.pbs_level):
+            raise ValueError(f"levels={lv}: need 1 <= levels <= pbs_level")
+        return dataclasses.replace(self, pbs_level=lv, mxu_limb_drop=limb_drop)
 
     @property
     def glwe_size(self) -> int:
@@ -62,10 +98,10 @@ def pbs_modulus_switch(x: torch.Tensor, poly_size: int, offset: int = 0,
     int32 degrees in [0, 2N]; 2N, like every degree, acts mod 2N."""
     log2n = poly_size.bit_length() - 1
     out = x << offset
-    out = lshr(out, 32 - log2n - 2 + lut_count_log)
+    out = lshr(out, bits_of(x) - log2n - 2 + lut_count_log)
     out = out + (out & 1)
     out = lshr(out, 1)
-    return out << lut_count_log
+    return (out << lut_count_log).to(torch.int32)
 
 
 def sample_extract(glwe: torch.Tensor) -> torch.Tensor:
@@ -88,7 +124,7 @@ def sample_extract_nth(glwe: torch.Tensor, n_th: int) -> torch.Tensor:
 def trivial_lut_constant(cfg: ServerConfig, value, device=None) -> torch.Tensor:
     """Accumulator GLWE [k+1, N] with zero mask and a constant body
     polynomial: the boolean gates' test polynomial (server_key/mod.rs:145-156)."""
-    lut = torch.zeros((cfg.glwe_size, cfg.polynomial_size), dtype=torch.int32,
-                      device=device)
-    lut[-1, :] = as_torus(value, device)
+    lut = torch.zeros((cfg.glwe_size, cfg.polynomial_size),
+                      dtype=carrier(cfg.bits), device=device)
+    lut[-1, :] = as_torus(value, device, cfg.bits)
     return lut

@@ -1,22 +1,24 @@
 """Programmable bootstrapping with the external product as an exact
-negacyclic toeplitz matmul mod 2^32 on int8 operands (the "mxu" backend of
-concrete_tpu/core/bootstrap_mxu.py, u32 torus).
+negacyclic toeplitz matmul mod 2^bits on int8 operands (the "mxu" backend of
+concrete_tpu/core/bootstrap_mxu.py), on the u32 torus (int32 carriers) and
+the u64 torus (int64 carriers).
 
 Exactness, as in the JAX package:
 - gadget digits satisfy |d| <= B/2; digits wider than int8 are split into
   balanced 7-bit chunks d = sum_j 2^(7j) e_j with |e_j| <= 64;
-- each u32 key coefficient is packed as 4 balanced signed-byte limbs c_m in
-  [-128, 127] with sum_m c_m 2^(8m) == v (mod 2^32);
+- each key coefficient is packed as bits/8 balanced signed-byte limbs c_m in
+  [-128, 127] with sum_m c_m 2^(8m) == v (mod 2^bits);
 - the int8 x int8 -> int32 product over K <= 2^31 / 8192 rows is exact, and
-  the wrapping recombination sum_m S_m << 8m IS the result mod 2^32.
+  the wrapping recombination sum_m S_m << 8m in the carrier's type IS the
+  result mod 2^bits.
 
-One CMux step of the blind rotation, batch B:
-    rotdig        (K2)  digits of X^a_hat * acc - acc   -> d8  [B, R*N] int8
-    build_tables  (K1)  toeplitz RHS of the step's GGSW -> rhs [R*N, (k+1)*4*N] int8
-    int_mm              S = d8 @ rhs                    -> [B, (k+1)*4*N] int32
-    recombine           acc += sum_m S_m << 8m
-At large batch the dot-first form folds the recombine of step j into the
-digit kernel of step j+1 (rotdig_recombine, K3).
+One CMux step of the blind rotation, batch B, L = bits/8 - limb_drop limbs:
+    rotdig / rotdig64 (K2 / K4)  digits of X^a_hat * acc - acc -> d8 [B, R*N] int8
+    build_tables (K1)   toeplitz RHS of the step's GGSW -> rhs [R*N, (k+1)*L*N] int8
+    int_mm              S = d8 @ rhs                    -> [B, (k+1)*L*N] int32
+    recombine           acc += sum_m S_m << 8(limb_drop + m)
+At large batch on the u32 torus the dot-first form folds the recombine of
+step j into the digit kernel of step j+1 (rotdig_recombine, K3).
 
 Each kernel wrapper below takes its plain PyTorch version when its tensors
 lie on the CPU, and launches the hand-written CUDA kernel
@@ -30,6 +32,11 @@ Example:
     >>> plan = MxuPlan.from_config(cfg)
     >>> (plan.row_blocks, plan.n_sub, plan.limbs_used)
     (4, 1, 4)
+    >>> import dataclasses
+    >>> fast64 = dataclasses.replace(cfg, bits=64, mxu_limb_drop=2)
+    >>> p64 = MxuPlan.from_config(fast64)
+    >>> (p64.n_words, p64.n_limbs, p64.limbs_used)
+    (2, 8, 6)
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 
 from ..math import decomposition, polynomial
 from ..ops import _cuda
+from ..torus import carrier
 from . import lwe as lwe_ops
 from .bootstrap import (
     ServerConfig,
@@ -56,7 +64,7 @@ from .bootstrap import (
 
 @dataclasses.dataclass(frozen=True)
 class MxuPlan:
-    """Static layout of the toeplitz-matmul external product (u32 torus)."""
+    """Static layout of the toeplitz-matmul external product."""
 
     lwe_dimension: int
     glwe_size: int          # k+1
@@ -67,21 +75,23 @@ class MxuPlan:
     ks_base_log: int
     ks_level: int
     limb_drop: int = 0      # low key byte limbs dropped (reduced precision)
+    bits: int = 32          # torus width: 32 (boolean) or 64 (high level)
 
     SUB_CHUNK_BITS = 7
-    N_LIMBS = 4             # signed-byte limbs of a u32 coefficient
 
     @classmethod
     def from_config(cls, cfg: ServerConfig) -> "MxuPlan":
+        if cfg.bits not in (32, 64):
+            raise NotImplementedError("mxu bootstrap: u32 / u64 torus only")
         if cfg.polynomial_size > 4096:
             raise NotImplementedError(
                 "toeplitz RHS is O(N^2) per CMux; N > 4096 needs the "
                 "Nussbaumer backend, which is not ported yet")
         bl = cfg.pbs_base_log
-        if not (1 <= bl < 32 and bl * cfg.pbs_level <= 32):
+        if not (1 <= bl < 32 and bl * cfg.pbs_level <= cfg.bits):
             raise NotImplementedError(
                 f"pbs_base_log={bl}, pbs_level={cfg.pbs_level}: need "
-                "base_log < 32 and base_log*level <= 32")
+                f"base_log < 32 and base_log*level <= {cfg.bits}")
         n_sub = 1 if bl <= 7 else (bl - 8) // 7 + 2
         k_rows = cfg.pbs_level * cfg.glwe_size * n_sub * cfg.polynomial_size
         if k_rows * 64 * 128 >= 2 ** 31:
@@ -96,6 +106,8 @@ class MxuPlan:
             n_sub=n_sub,
             ks_base_log=cfg.ks_base_log,
             ks_level=cfg.ks_level,
+            limb_drop=cfg.mxu_limb_drop,
+            bits=cfg.bits,
         )
 
     def sub_multiplier(self, sub: int) -> int:
@@ -103,9 +115,19 @@ class MxuPlan:
         return 1 << (self.SUB_CHUNK_BITS * (self.n_sub - 1 - sub))
 
     @property
+    def n_words(self) -> int:
+        """u32 word planes per torus coefficient in the rings (1 or 2)."""
+        return self.bits // 32
+
+    @property
+    def n_limbs(self) -> int:
+        """Signed-byte limbs of a torus coefficient (4 or 8)."""
+        return self.bits // 8
+
+    @property
     def limbs_used(self) -> int:
         """Key byte limbs carried by the RHS and the recombine."""
-        return self.N_LIMBS - self.limb_drop
+        return self.n_limbs - self.limb_drop
 
     @property
     def row_blocks(self) -> int:
@@ -119,42 +141,52 @@ class MxuPlan:
 
 
 def _limb_pack(v: np.ndarray) -> np.ndarray:
-    """Pack the balanced signed-byte limbs of u32 `v` into u32 words: byte m
-    is limb c_m mod 256; carries propagate upward and the top carry wraps,
-    so the bytes recompose to v exactly."""
-    w = v.astype(np.uint32)
-    one = np.uint32(1)
+    """Pack the balanced signed-byte limbs of u32 / u64 `v` into words of the
+    same width: byte m is limb c_m mod 256; carries propagate upward and the
+    top carry wraps, so the bytes recompose to v exactly."""
+    dt = v.dtype.type
+    one = dt(1)
+    w = v
     with np.errstate(over="ignore"):
-        for b in range(7, 24, 8):
-            w = w + (((w >> np.uint32(b)) & one) << np.uint32(b + 1))
+        for b in range(7, v.dtype.itemsize * 8 - 8, 8):
+            w = w + (((w >> dt(b)) & one) << dt(b + 1))
     return w
 
 
 def bsk_to_mxu(bsk_data, cfg: ServerConfig) -> np.ndarray:
-    """[n, l, k+1, k+1, N] u32 BSK -> toeplitz rotation rings
-    [n, R, k+1, 2N] u32: ring = [limbs(+g), limbs(-g)], row blocks in
-    (lev, sub, ki) order, sub=0 the 2^7-scaled high chunk. The negated half
-    is precomputed because the balanced limbs of -g are not -limbs(g)."""
+    """[n, l, k+1, k+1, N] u32 / u64 BSK -> toeplitz rotation rings
+    [n, R, (k+1)*n_words, 2N] u32: ring = [limbs(+g), limbs(-g)], row blocks
+    in (lev, sub, ki) order, sub=0 the 2^7-scaled high chunk; a u64 ring is
+    split into n_words=2 u32 word planes, plane kj*2 + w holding word w. The
+    negated half is precomputed because the balanced limbs of -g are not
+    -limbs(g)."""
     plan = MxuPlan.from_config(cfg)
-    bsk = np.asarray(bsk_data, dtype=np.uint32)
+    dt = np.uint32 if plan.bits == 32 else np.uint64
+    bsk = np.asarray(bsk_data, dtype=dt)
     n, l, ks1, _, N = bsk.shape
-    rings = np.empty((n, plan.row_blocks, ks1, 2 * N), dtype=np.uint32)
+    rings = np.empty((n, plan.row_blocks, ks1, plan.n_words, 2 * N),
+                     dtype=np.uint32)
     blk = 0
     with np.errstate(over="ignore"):
         for lev in range(l):
             for sub in range(plan.n_sub):
-                mult = np.uint32(plan.sub_multiplier(sub))
+                mult = dt(plan.sub_multiplier(sub))
                 for ki in range(ks1):
                     g = bsk[:, lev, ki, :, :] * mult     # [n, k+1, N] wrapping
-                    rings[:, blk, :, :N] = _limb_pack(g)
-                    rings[:, blk, :, N:] = _limb_pack(np.uint32(0) - g)
+                    pos, neg = _limb_pack(g), _limb_pack(dt(0) - g)
+                    for w in range(plan.n_words):
+                        sh = dt(32 * w)
+                        rings[:, blk, :, w, :N] = (pos >> sh).astype(np.uint32)
+                        rings[:, blk, :, w, N:] = (neg >> sh).astype(np.uint32)
                     blk += 1
-    return rings
+    return rings.reshape(n, plan.row_blocks, ks1 * plan.n_words, 2 * N)
 
 
-def _kept_limbs(limb_drop: int) -> list[int]:
-    """Byte limbs kept by the RHS, ascending (limb_drop removes low ones)."""
-    return list(range(limb_drop, MxuPlan.N_LIMBS))
+def _kept_limbs(n_words: int, limb_drop: int) -> list[tuple[int, int]]:
+    """Kept (word, byte) pairs in ascending global-limb order 4*word + byte
+    (limb_drop removes low limbs)."""
+    return [(w, m) for w in range(n_words) for m in range(4)
+            if 4 * w + m >= limb_drop]
 
 
 # ---------------------------------------------------------------------------
@@ -191,13 +223,15 @@ def _digit_matrix(plan: MxuPlan, diff: torch.Tensor) -> torch.Tensor:
 
 
 def recombine_limb_planes(plan: MxuPlan, s: torch.Tensor) -> torch.Tensor:
-    """[B, (kj, m, c)] int32 dot output -> [k+1, B, N]: the wrapping sum of
-    the limb planes, S_m << 8(limb_drop + m), is the value mod 2^32."""
+    """[B, (kj, m, c)] int32 dot output -> [k+1, B, N] in the torus carrier
+    (int32 / int64): the wrapping sum of the limb planes,
+    S_m << 8(limb_drop + m), is the value mod 2^bits."""
     b = s.shape[0]
+    dt = carrier(plan.bits)
     planes = s.reshape(b, plan.glwe_size, plan.limbs_used, plan.polynomial_size)
-    out = planes[:, :, 0] << (8 * plan.limb_drop)
+    out = planes[:, :, 0].to(dt) << (8 * plan.limb_drop)
     for j in range(1, plan.limbs_used):
-        out = out + (planes[:, :, j] << (8 * (plan.limb_drop + j)))
+        out = out + (planes[:, :, j].to(dt) << (8 * (plan.limb_drop + j)))
     return out.permute(1, 0, 2)
 
 
@@ -231,12 +265,13 @@ def int_mm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None):
 
 def _toeplitz_matmul(plan: MxuPlan, d8, rhs, out=None):
     """d8 [B, R*N] x rhs [R*N, (k+1)*L*N] -> [k+1, B, N]: the exact external
-    product mod 2^32 (one int8 dot into `out`, then the limb recombination)."""
+    product mod 2^bits (one int8 dot into `out`, then the limb
+    recombination)."""
     return recombine_limb_planes(plan, int_mm(d8, rhs, out=out))
 
 
 # ---------------------------------------------------------------------------
-# the three kernels: plain PyTorch versions and wrappers
+# the four kernels: plain PyTorch versions and wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -274,18 +309,23 @@ def _check_kernel_operands(n: int, *tensors):
             raise ValueError("CUDA kernel operands must be 16-byte aligned")
 
 
-def build_tables_plain(rings: torch.Tensor, n: int, limb_drop: int = 0):
-    """rings [R, k+1, 2N] int32 -> RHS [R*N, (k+1)*L*N] int8, L = 4 -
-    limb_drop: entry (blk*N + r, (kj*L + li)*N + c) is byte limb_drop+li of
-    ring[blk, kj][(c - r) mod 2N], the negacyclic toeplitz matrix.
+def build_tables_plain(rings: torch.Tensor, n: int, limb_drop: int = 0,
+                       n_words: int = 1):
+    """rings [R, (k+1)*n_words, 2N] int32 word planes -> RHS
+    [R*N, (k+1)*L*N] int8, L = 4*n_words - limb_drop: entry
+    (blk*N + r, (kj*L + li)*N + c) is global byte limb_drop+li (byte g & 3 of
+    word plane kj*n_words + g//4) of ring[blk, kj][(c - r) mod 2N], the
+    negacyclic toeplitz matrix.
 
     Row r of block blk reads ring[(c - r) mod 2N] for c < N, i.e. the window
     ext[N - r .. 2N - r) of ext = roll(ring, N); reversed rows r' = N-1-r
     are the windows ext[1 + r' ..], a plain strided view."""
-    r_blocks, ks1, _ = rings.shape
-    kept = _kept_limbs(limb_drop)
-    limbs = torch.stack([(rings << (24 - 8 * m)) >> 24 for m in kept],
-                        dim=2).to(torch.int8)             # [R, k+1, L, 2N]
+    r_blocks = rings.shape[0]
+    ks1 = rings.shape[1] // n_words
+    words = rings.reshape(r_blocks, ks1, n_words, 2 * n)
+    kept = _kept_limbs(n_words, limb_drop)
+    limbs = torch.stack([(words[:, :, w] << (24 - 8 * m)) >> 24
+                         for w, m in kept], dim=2).to(torch.int8)  # [R, k+1, L, 2N]
     ext = torch.roll(limbs, n, dims=-1).contiguous()
     nk = len(kept)
     windows = ext.as_strided(
@@ -294,25 +334,29 @@ def build_tables_plain(rings: torch.Tensor, n: int, limb_drop: int = 0):
     return windows.flip(1).reshape(r_blocks * n, ks1 * nk * n)
 
 
-def build_tables(rings: torch.Tensor, n: int, limb_drop: int = 0, *,
+def build_tables(rings: torch.Tensor, n: int, limb_drop: int = 0,
+                 n_words: int = 1, *,
                  out: torch.Tensor | None = None) -> torch.Tensor:
-    """K1, the toeplitz RHS of one CMux step (build_tables_plain). `out`, when
-    given, is written in place: the blind rotation allocates it once and
-    reuses it every step."""
-    r_blocks, ks1 = rings.shape[:2]
-    nk = MxuPlan.N_LIMBS - limb_drop
+    """K1, the toeplitz RHS of one CMux step (build_tables_plain), from u32
+    (n_words=1) or u64 (n_words=2) rings. `out`, when given, is written in
+    place: the blind rotation allocates it once and reuses it every step."""
+    r_blocks, planes = rings.shape[:2]
+    ks1 = planes // n_words
+    nk = 4 * n_words - limb_drop
+    if n_words not in (1, 2) or not 0 <= limb_drop < 4 * n_words:
+        raise ValueError(f"n_words={n_words}, limb_drop={limb_drop}")
     shape = (r_blocks * n, ks1 * nk * n)
-    _check(rings, "rings", torch.int32, (r_blocks, ks1, 2 * n))
+    _check(rings, "rings", torch.int32, (r_blocks, ks1 * n_words, 2 * n))
     if out is not None:
         _check(out, "out", torch.int8, shape)
     if _on_cpu(rings, out):
-        res = build_tables_plain(rings, n, limb_drop)
+        res = build_tables_plain(rings, n, limb_drop, n_words)
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty(shape, dtype=torch.int8, device=rings.device)
     _check_kernel_operands(n, rings, out)
     _cuda.launch("ctt_build_tables", rings, out, r_blocks, ks1, n, nk,
-                 limb_drop)
+                 limb_drop, n_words)
     build_tables.launches += 1
     return out
 
@@ -322,17 +366,20 @@ build_tables.launches = 0
 
 def rotdig_plain(plan: MxuPlan, acc: torch.Tensor, a_hat: torch.Tensor):
     """Digit matrix [B, R*N] int8 of (X^a_hat * acc - acc), acc [k+1, B, N]
-    int32, a_hat [B] int32 (read mod 2N)."""
+    int32 (u32 torus) or int64 (u64 torus), a_hat [B] int32 (read mod 2N)."""
     rot = polynomial.negacyclic_monomial_mul(acc, a_hat[None, :])
     return _digit_matrix(plan, rot - acc)
 
 
-def rotdig(plan: MxuPlan, acc: torch.Tensor, a_hat: torch.Tensor, *,
-           out: torch.Tensor | None = None) -> torch.Tensor:
-    """K2, rotation + gadget digits of one CMux step (rotdig_plain)."""
+# K4's plain version: the same arithmetic on int64 carriers
+rotdig64_plain = rotdig_plain
+
+
+def _rotdig_launch(kernel, entry: str, dtype, plan: MxuPlan, acc, a_hat, out):
+    """The shared wrapper of K2 (int32 acc) and K4 (int64 acc)."""
     ks1, b, n = acc.shape
     shape = (b, plan.row_blocks * n)
-    _check(acc, "acc", torch.int32, (plan.glwe_size, b, plan.polynomial_size))
+    _check(acc, "acc", dtype, (plan.glwe_size, b, plan.polynomial_size))
     _check(a_hat, "a_hat", torch.int32, (b,))
     if out is not None:
         _check(out, "out", torch.int8, shape)
@@ -343,13 +390,30 @@ def rotdig(plan: MxuPlan, acc: torch.Tensor, a_hat: torch.Tensor, *,
         out = torch.empty(shape, dtype=torch.int8, device=acc.device)
     if b:
         _check_kernel_operands(n, acc, out)
-        _cuda.launch("ctt_rotdig", acc, a_hat, out, b, ks1, n, plan.base_log,
+        _cuda.launch(entry, acc, a_hat, out, b, ks1, n, plan.base_log,
                      plan.level, plan.n_sub)
-        rotdig.launches += 1
+        kernel.launches += 1
     return out
 
 
+def rotdig(plan: MxuPlan, acc: torch.Tensor, a_hat: torch.Tensor, *,
+           out: torch.Tensor | None = None) -> torch.Tensor:
+    """K2, rotation + gadget digits of one CMux step on the u32 torus
+    (rotdig_plain)."""
+    return _rotdig_launch(rotdig, "ctt_rotdig", torch.int32, plan, acc, a_hat,
+                          out)
+
+
+def rotdig64(plan: MxuPlan, acc: torch.Tensor, a_hat: torch.Tensor, *,
+             out: torch.Tensor | None = None) -> torch.Tensor:
+    """K4, rotation + gadget digits of one CMux step on the u64 torus
+    (rotdig64_plain), for every base_log*level <= 64."""
+    return _rotdig_launch(rotdig64, "ctt_rotdig64", torch.int64, plan, acc,
+                          a_hat, out)
+
+
 rotdig.launches = 0
+rotdig64.launches = 0
 
 
 def rotdig_recombine_plain(plan: MxuPlan, s: torch.Tensor, acc: torch.Tensor,
@@ -397,7 +461,7 @@ def rotdig_recombine(plan: MxuPlan, s: torch.Tensor, acc: torch.Tensor,
 
 rotdig_recombine.launches = 0
 
-KERNELS = (build_tables, rotdig, rotdig_recombine)
+KERNELS = (build_tables, rotdig, rotdig_recombine, rotdig64)
 
 
 def launch_counts() -> dict[str, int]:
@@ -446,11 +510,12 @@ def _step_buffers(plan: MxuPlan, b: int, device):
 def _plain_scan(plan: MxuPlan, bsk_rings, acc, a_hats):
     """One CMux step per mask element: digits, table, dot, recombine."""
     d8, rhs, s = _step_buffers(plan, acc.shape[1], acc.device)
+    digits = rotdig if plan.bits == 32 else rotdig64
     acc = acc.clone()
     for i in range(a_hats.shape[0]):
-        rotdig(plan, acc, a_hats[i], out=d8)
+        digits(plan, acc, a_hats[i], out=d8)
         build_tables(bsk_rings[i], plan.polynomial_size, plan.limb_drop,
-                     out=rhs)
+                     plan.n_words, out=rhs)
         acc += _toeplitz_matmul(plan, d8, rhs, out=s)
     return acc
 
@@ -459,7 +524,7 @@ def _deferred_scan(plan: MxuPlan, bsk_rings, acc, a_hats):
     """The dot-first form: step j's dot output S is recombined inside step
     j+1's digit kernel (K3). A first kernel call with S = 0 applies a_hat_0;
     step j then consumes rings_j and a_hat_{j+1}, and the last step's dummy
-    a_hat = 0 rotates by X^0 (its digits are discarded)."""
+    a_hat = 0 rotates by X^0 (its digits are discarded). u32 torus only."""
     d8, rhs, s = _step_buffers(plan, acc.shape[1], acc.device)
     acc = acc.clone()
     rotdig_recombine(plan, s, acc, a_hats[0], acc_out=acc, d8_out=d8)
@@ -477,16 +542,22 @@ def blind_rotate_mxu(cfg: ServerConfig, bsk_rings: torch.Tensor,
                      ms_offset: int = 0, lut_count_log: int = 0):
     """Blind rotation with the toeplitz-matmul CMux chain.
 
-    bsk_rings [n, R, k+1, 2N] int32 (bsk_to_mxu); lut [..., k+1, N];
-    lwe [..., n+1]. Returns the rotated accumulator [..., k+1, N],
-    bit-identical to concrete_tpu's blind_rotate_mxu."""
+    bsk_rings [n, R, (k+1)*n_words, 2N] int32 (bsk_to_mxu); lut [..., k+1, N]
+    and lwe [..., n+1] in the torus carrier (int32 / int64). Returns the
+    rotated accumulator [..., k+1, N], bit-identical to concrete_tpu's
+    blind_rotate_mxu. The u32 torus takes the dot-first loop where
+    auto_defer says so, as the JAX package does; the u64 torus always takes
+    the plain loop."""
     plan = MxuPlan.from_config(cfg)
     n_lwe, N, ks1 = cfg.lwe_dimension, plan.polynomial_size, plan.glwe_size
-    if tuple(bsk_rings.shape) != (n_lwe, plan.row_blocks, ks1, 2 * N):
+    if tuple(bsk_rings.shape) != (n_lwe, plan.row_blocks, ks1 * plan.n_words,
+                                  2 * N):
         raise ValueError(f"bsk_rings: shape {tuple(bsk_rings.shape)} does "
                          "not match the configuration")
     if lwe.shape[-1] != n_lwe + 1 or tuple(lut.shape[-2:]) != (ks1, N):
         raise ValueError("lwe / lut shapes do not match the configuration")
+    if lwe.dtype != carrier(plan.bits) or lut.dtype != lwe.dtype:
+        raise TypeError(f"u{plan.bits} torus tensors are {carrier(plan.bits)}")
     lead = lwe.shape[:-1]
     lwe_flat = lwe.reshape(-1, n_lwe + 1)
     b = lwe_flat.shape[0]
@@ -496,7 +567,8 @@ def blind_rotate_mxu(cfg: ServerConfig, bsk_rings: torch.Tensor,
     lut_b = lut.reshape(-1, ks1, N).expand(b, ks1, N)
     acc = polynomial.negacyclic_monomial_div(
         lut_b.permute(1, 0, 2), b_hat[None, :]).contiguous()      # [k+1, B, N]
-    scan = _deferred_scan if auto_defer(plan, b) else _plain_scan
+    deferred = plan.bits == 32 and auto_defer(plan, b)
+    scan = _deferred_scan if deferred else _plain_scan
     acc = scan(plan, bsk_rings, acc, a_hats)
     return acc.permute(1, 0, 2).reshape(lead + (ks1, N))
 

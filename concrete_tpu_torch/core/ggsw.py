@@ -1,8 +1,9 @@
 """GGSW encryption of the bootstrap key (crypto/bootstrap/standard/mod.rs).
 
 A GGSW ciphertext is [l, k+1, k+1, N]: `level` matrices of k+1 GLWE rows. A
-bootstrap key is one GGSW per LWE key bit, [n, l, k+1, k+1, N] np.uint32.
-All rows are assembled with one batched multisum.
+bootstrap key is one GGSW per LWE key bit, [n, l, k+1, k+1, N] np.uint32
+or np.uint64 (the GLWE key's torus). All rows are assembled with one batched
+multisum.
 
 Example:
     >>> import numpy as np
@@ -16,6 +17,10 @@ Example:
     ...                                     EncryptionRandom.new(2, 3))
     >>> bsk.data.shape            # [n, levels, k+1, k+1, N]
     (3, 2, 2, 2, 16)
+    >>> gsk64 = GlweSecretKey.generate_binary(1, 16, rng, bits=64)
+    >>> StandardBootstrapKey.generate(lsk, gsk64, 4, 2, 0.0,
+    ...     EncryptionRandom.new(2, 3)).data.dtype
+    dtype('uint64')
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import dataclasses
 
 import numpy as np
 
-from ..torus import EncryptionRandom
+from ..torus import UNSIGNED, EncryptionRandom
 from .glwe import GlweSecretKey
 
 
@@ -35,26 +40,27 @@ def assemble_ggsw(glwe_key: GlweSecretKey, base_log: int, level_count: int,
     [n, l, k+1, N], values [n] -> [n, l, k+1, k+1, N], encryptions of zero
     plus the gadget constants on the diagonals."""
     rows = glwe_key.encrypt_from_randomness(
-        masks, noises, np.zeros(noises.shape, dtype=np.uint32))
-    _add_gadget_diagonals(rows, values, base_log, level_count)
+        masks, noises, np.zeros(noises.shape, dtype=noises.dtype))
+    _add_gadget_diagonals(rows, values, base_log, level_count, glwe_key.bits)
     return rows
 
 
 def _add_gadget_diagonals(rows: np.ndarray, values: np.ndarray,
-                          base_log: int, level_count: int):
+                          base_log: int, level_count: int, bits: int):
     """Add value_b * q/B^level to coefficient 0 of each level matrix's
     diagonal polynomials, in place (secret/glwe.rs:831-856)."""
-    shifts = np.array([32 - base_log * (lev + 1) for lev in range(level_count)],
-                      dtype=np.uint64)
+    shifts = np.array([bits - base_log * (lev + 1)
+                       for lev in range(level_count)], dtype=np.uint64)
     summands = (np.asarray(values).astype(np.uint64)[:, None]
-                << shifts[None, :]).astype(np.uint32)          # [n, l]
+                << shifts[None, :]).astype(UNSIGNED[bits])     # [n, l]
     for row_idx in range(rows.shape[2]):
         rows[:, :, row_idx, row_idx, 0:1] += summands[:, :, None]
 
 
 @dataclasses.dataclass
 class StandardBootstrapKey:
-    """Coefficient-domain bootstrap key, data [n, l, k+1, k+1, N] np.uint32."""
+    """Coefficient-domain bootstrap key, data [n, l, k+1, k+1, N] np.uint32
+    or np.uint64."""
 
     data: np.ndarray
     base_log: int
@@ -68,8 +74,9 @@ class StandardBootstrapKey:
         uniform masks and Gaussian noise of std `std` from `rand`."""
         k, n = glwe_key.dimension, glwe_key.polynomial_size
         n_lwe = lwe_key.dimension
-        masks = rand.fill_mask((n_lwe, level_count, k + 1, k, n))
-        noises = rand.fill_noise((n_lwe, level_count, k + 1, n), std)
+        bits = glwe_key.bits
+        masks = rand.fill_mask((n_lwe, level_count, k + 1, k, n), bits)
+        noises = rand.fill_noise((n_lwe, level_count, k + 1, n), std, bits)
         data = assemble_ggsw(glwe_key, base_log, level_count, masks, noises,
                              lwe_key.key)
         return cls(data=data, base_log=base_log, level_count=level_count)

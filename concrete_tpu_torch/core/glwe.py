@@ -1,14 +1,17 @@
 """GLWE secret keys and encryption (crypto/secret/glwe.rs), client side.
 
 A GLWE ciphertext is [k+1, N] with the body polynomial last. Keys and
-ciphertexts are np.uint32; the mask-times-key products run through
-``math.polynomial.negacyclic_multisum`` (exact, float64).
+ciphertexts are np.uint32 (u32 torus) or np.uint64 (u64 torus); the
+mask-times-key products run through ``math.polynomial.negacyclic_multisum``
+(exact, float64).
 
 Example:
     >>> import numpy as np
     >>> sk = GlweSecretKey.generate_binary(2, 8, np.random.default_rng(1))
     >>> sk.key.shape, sk.into_lwe_key().dimension
     ((2, 8), 16)
+    >>> GlweSecretKey.generate_binary(1, 8, np.random.default_rng(1), bits=64).key.dtype
+    dtype('uint64')
 """
 
 from __future__ import annotations
@@ -18,14 +21,16 @@ import dataclasses
 import numpy as np
 
 from ..math import polynomial
-from ..torus import from_numpy, to_numpy
+from ..torus import UNSIGNED, from_numpy, to_numpy
 
 
 @dataclasses.dataclass
 class GlweSecretKey:
-    """A GLWE secret key: [k, N] np.uint32 key polynomials (secret/glwe.rs:31)."""
+    """A GLWE secret key: [k, N] np.uint32 / np.uint64 key polynomials
+    (secret/glwe.rs:31); `bits` is the torus width."""
 
     key: np.ndarray
+    bits: int = 32
 
     @property
     def dimension(self) -> int:
@@ -37,17 +42,18 @@ class GlweSecretKey:
 
     @classmethod
     def generate_binary(cls, dim: int, poly_size: int,
-                        rng: np.random.Generator):
+                        rng: np.random.Generator, bits: int = 32):
         """Uniform binary key drawn from `rng` (a numpy Generator, not the
         JAX package's AES-CTR stream)."""
-        return cls(rng.integers(0, 2, size=(dim, poly_size), dtype=np.uint32))
+        return cls(rng.integers(0, 2, size=(dim, poly_size),
+                                dtype=UNSIGNED[bits]), bits)
 
     def into_lwe_key(self):
         """The flattened ("big") LWE key of dimension k*N (secret/glwe.rs:332),
         which decrypts sample-extracted ciphertexts."""
         from .lwe import LweSecretKey
 
-        return LweSecretKey(self.key.reshape(-1).copy())
+        return LweSecretKey(self.key.reshape(-1).copy(), self.bits)
 
     def encrypt_from_randomness(self, masks: np.ndarray, noises: np.ndarray,
                                 msgs: np.ndarray) -> np.ndarray:

@@ -1,13 +1,14 @@
-// Hand-written Hopper (sm_90a) kernels of the u32 toeplitz ("mxu") blind
-// rotation: K1 build_tables, K2 rotdig, K3 rotdig_recombine. They replace
-// the Pallas kernels of concrete_tpu/core/bootstrap_mxu.py and compute the
-// same bits; the plain PyTorch versions beside the wrappers
+// Hand-written Hopper (sm_90a) kernels of the toeplitz ("mxu") blind
+// rotation: K1 build_tables, K2 rotdig, K3 rotdig_recombine (u32 torus) and
+// K4 rotdig64 (u64 torus). They replace the Pallas kernels of
+// concrete_tpu/core/bootstrap_mxu.py and compute the same bits; the plain
+// PyTorch versions beside the wrappers
 // (concrete_tpu_torch/core/bootstrap_mxu.py) define what each one returns.
 //
-// Torus values arrive as int32 tensors holding u32 bit patterns; every
-// torus operation here is on uint32_t, whose wrap is defined (signed
-// overflow is not). Only the sub-digit split works in int32, as the JAX
-// code does, on values far from overflow.
+// Torus values arrive as int32 / int64 tensors holding u32 / u64 bit
+// patterns; every torus operation here is on uint32_t / uint64_t, whose
+// wrap is defined (signed overflow is not). Only the sub-digit split works
+// in int32, as the JAX code does, on digits far from overflow.
 //
 // Built by concrete_tpu_torch/ops/_cuda.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -26,12 +27,13 @@ constexpr int kSubChunkBits = 7;  // MxuPlan.SUB_CHUNK_BITS
 
 // Coefficient c of X^a * row mod (X^N + 1), N = n a power of two: a signed
 // gather. t = (c - a) mod 2N; t >= N is the wrapped half (X^N == -1).
-__device__ __forceinline__ uint32_t rotated(const uint32_t* row, int c,
-                                            int32_t a, int n) {
+// T is the torus word: uint32_t (u32 torus) or uint64_t (u64 torus).
+template <typename T>
+__device__ __forceinline__ T rotated(const T* row, int c, int32_t a, int n) {
   const uint32_t t = (static_cast<uint32_t>(c) - static_cast<uint32_t>(a)) &
                      static_cast<uint32_t>(2 * n - 1);
-  const uint32_t v = row[t & static_cast<uint32_t>(n - 1)];
-  return t >= static_cast<uint32_t>(n) ? 0u - v : v;
+  const T v = row[t & static_cast<uint32_t>(n - 1)];
+  return t >= static_cast<uint32_t>(n) ? T(0) - v : v;
 }
 
 // Signed gadget digits of four consecutive coefficients c0..c0+3 of one
@@ -40,34 +42,39 @@ __device__ __forceinline__ uint32_t rotated(const uint32_t* row, int c,
 // (concrete_tpu/math/decomposition.py), level l first; each digit is split
 // into n_sub balanced 7-bit chunks (_split_subdigits, MSB chunk = sub 0) at
 // column block ((lev * n_sub + sub) * ks1 + ki) * N.
-__device__ __forceinline__ void emit_digits(int8_t* d8_row,
-                                            const uint32_t diff[4], int ki,
-                                            int ks1, int n, int c0,
+// non_rep = bits - base_log*level lies in [0, bits - 1]: no shift reaches
+// the word width (at non_rep = 0 nothing is rounded and the shift is 0),
+// and at non_rep = 32 on u64 the rounding bit is bit 31, as in the JAX
+// kernel's low-word edge. |digit| <= 2^(base_log-1) <= 2^30 fits int32.
+template <typename T>
+__device__ __forceinline__ void emit_digits(int8_t* d8_row, const T diff[4],
+                                            int ki, int ks1, int n, int c0,
                                             int base_log, int level,
                                             int n_sub) {
-  const int non_rep = 32 - base_log * level;  // in [0, 31]
-  uint32_t state[4];
+  const int non_rep = static_cast<int>(8 * sizeof(T)) - base_log * level;
+  T state[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    uint32_t d = diff[q];
+    T d = diff[q];
     if (non_rep > 0) {
-      const uint32_t msb = (d >> (non_rep - 1)) & 1u;
+      const T msb = (d >> (non_rep - 1)) & T(1);
       d = ((d >> non_rep) + msb) << non_rep;
     }
     state[q] = d >> non_rep;
   }
-  const uint32_t mask = (1u << base_log) - 1u;
+  const T mask = (T(1) << base_log) - T(1);
   for (int step = 0; step < level; ++step) {
     const int lev = level - 1 - step;
     int32_t digit[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const uint32_t res = state[q] & mask;
-      uint32_t st = state[q] >> base_log;
-      uint32_t carry = ((res - 1u) | st) & res;
+      const T res = state[q] & mask;
+      const T st = state[q] >> base_log;
+      T carry = ((res - T(1)) | st) & res;
       carry >>= base_log - 1;
       state[q] = st + carry;
-      digit[q] = static_cast<int32_t>(res - (carry << base_log));
+      digit[q] = static_cast<int32_t>(
+          static_cast<uint32_t>(res - (carry << base_log)));
     }
     for (int j = 0; j < n_sub; ++j) {  // j = 0: least significant chunk
       uint32_t packed = 0;
@@ -91,12 +98,13 @@ __device__ __forceinline__ void emit_digits(int8_t* d8_row,
 }
 
 // The rotdig body on one polynomial already in shared memory.
-__device__ __forceinline__ void rotdig_row(const uint32_t* row, int32_t a,
+template <typename T>
+__device__ __forceinline__ void rotdig_row(const T* row, int32_t a,
                                            int8_t* d8_row, int ki, int ks1,
                                            int n, int base_log, int level,
                                            int n_sub) {
   for (int c0 = threadIdx.x * 4; c0 < n; c0 += blockDim.x * 4) {
-    uint32_t diff[4];
+    T diff[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       diff[q] = rotated(row, c0 + q, a, n) - row[c0 + q];
@@ -105,27 +113,37 @@ __device__ __forceinline__ void rotdig_row(const uint32_t* row, int32_t a,
   }
 }
 
-// K2 rotdig. Replaces concrete_tpu/core/bootstrap_mxu.py:_rotdig_pallas.
-// acc [k+1, B, N] u32, a_hat [B] i32 -> d8 [B, R*N] i8, R = level*n_sub*(k+1).
+// K2 rotdig (T = uint32_t). Replaces
+// concrete_tpu/core/bootstrap_mxu.py:_rotdig_pallas.
+// K4 rotdig64 (T = uint64_t). Replaces
+// concrete_tpu/core/bootstrap_mxu.py:_rotdig_pallas64.
+// acc [k+1, B, N] u32 / u64, a_hat [B] i32 -> d8 [B, R*N] i8,
+// R = level*n_sub*(k+1).
 // One block per (lane b, polynomial ki); the polynomial sits in shared
-// memory (N <= 4096 words = 16 KB) and each thread gathers its rotated
-// coefficients from it, in place of the TPU kernel's barrel of static
-// rolls (which existed only because its compiler hung on dynamic rolls).
-// Bound on the card: HBM traffic, 4 bytes read and R/(k+1) bytes written
-// per coefficient; the digit loop is a few dozen integer ops. Design: the
-// acc row is read once, 16 bytes a thread, and the digits leave as packed
-// 4-byte stores, so a warp writes 128 contiguous bytes.
-__global__ void rotdig_kernel(const uint32_t* __restrict__ acc,
+// memory (N <= 4096 words: 16 KB u32, 32 KB u64) and each thread gathers
+// its rotated coefficients from it, in place of the TPU kernels' barrel of
+// static rolls (which existed only because their compiler hung on dynamic
+// rolls). K4 works on native uint64_t: the TPU kernel's (lo, hi) u32 word
+// planes and its base_log*level <= 32 limit existed only because the TPU
+// has no 64-bit lanes, so K4 takes every prefix up to 64 bits.
+// Bound on the card: HBM traffic, sizeof(T) bytes read and R/(k+1) bytes
+// written per coefficient; the digit loop is a few dozen integer ops.
+// Design: the acc row is read once, 16 bytes a thread, and the digits leave
+// as packed 4-byte stores, so a warp writes 128 contiguous bytes.
+template <typename T>
+__global__ void rotdig_kernel(const T* __restrict__ acc,
                               const int32_t* __restrict__ a_hat,
                               int8_t* __restrict__ d8, int batch, int ks1,
                               int n, int base_log, int level, int n_sub) {
-  extern __shared__ uint32_t row[];
+  extern __shared__ uint4 row_words[];
+  T* row = reinterpret_cast<T*>(row_words);
   const int b = blockIdx.x;
   const int ki = blockIdx.y;
-  const uint32_t* src = acc + (static_cast<size_t>(ki) * batch + b) * n;
-  for (int c0 = threadIdx.x * 4; c0 < n; c0 += blockDim.x * 4) {
-    *reinterpret_cast<uint4*>(row + c0) =
-        *reinterpret_cast<const uint4*>(src + c0);
+  const uint4* src = reinterpret_cast<const uint4*>(
+      acc + (static_cast<size_t>(ki) * batch + b) * n);
+  const int n16 = n * static_cast<int>(sizeof(T)) / 16;
+  for (int i = threadIdx.x; i < n16; i += blockDim.x) {
+    row_words[i] = src[i];
   }
   __syncthreads();
   const size_t d8_cols = static_cast<size_t>(level) * n_sub * ks1 * n;
@@ -152,7 +170,8 @@ __global__ void rotdig_recombine_kernel(const int32_t* __restrict__ s,
                                         int ks1, int n, int limbs_used,
                                         int limb_drop, int base_log,
                                         int level, int n_sub) {
-  extern __shared__ uint32_t row[];
+  extern __shared__ uint4 row_words[];
+  uint32_t* row = reinterpret_cast<uint32_t*>(row_words);
   const int b = blockIdx.x;
   const int ki = blockIdx.y;
   const size_t off = (static_cast<size_t>(ki) * batch + b) * n;
@@ -179,24 +198,28 @@ __global__ void rotdig_recombine_kernel(const int32_t* __restrict__ s,
 
 // K1 build_tables. Replaces
 // concrete_tpu/core/bootstrap_mxu.py:_build_tables_pallas.
-// rings [R, k+1, 2N] u32 -> rhs [R*N, (k+1)*n_kept*N] i8: entry
-// (blk*N + r, (kj*n_kept + li)*N + c) = byte (limb_drop + li) of
-// ring[blk, kj][(c - r) mod 2N]. One block per output row; each thread
-// makes 4 consecutive output bytes from 4 consecutive ring words.
+// rings [R, (k+1)*n_words, 2N] u32 word planes (n_words = 1 for the u32
+// torus, 2 for u64) -> rhs [R*N, (k+1)*n_kept*N] i8: entry
+// (blk*N + r, (kj*n_kept + li)*N + c) = global byte g = limb_drop + li, i.e.
+// byte g % 4 of word plane kj*n_words + g / 4, of ring[blk, kj][(c - r) mod
+// 2N]. One block per output row; each thread makes 4 consecutive output
+// bytes from 4 consecutive ring words.
 // Bound on the card: pure HBM write bandwidth (the RHS is R*N x
-// (k+1)*n_kept*N bytes, 13 MB a step at TPU128); a ring is at most 32 KB
-// and is read N times from L1/L2, not from HBM. Design: every thread stores
-// one 4-byte word, so each warp writes 128 contiguous bytes; the caller
-// keeps one output buffer for the whole blind rotation.
+// (k+1)*n_kept*N bytes: 13 MB a step at TPU128, 101 MB for the u64 int4
+// configuration); a ring block is at most 64 KB and is read N times from
+// L1/L2, not from HBM. Design: every thread stores one 4-byte word, so each
+// warp writes 128 contiguous bytes; the caller keeps one output buffer for
+// the whole blind rotation.
 __global__ void build_tables_kernel(const uint32_t* __restrict__ rings,
                                     int8_t* __restrict__ out, int ks1, int n,
-                                    int log2n, int n_kept, int limb_drop) {
+                                    int log2n, int n_kept, int limb_drop,
+                                    int n_words) {
   const int rowi = blockIdx.x;
   const int blk = rowi >> log2n;
   const int r = rowi & (n - 1);
   const int words = (ks1 * n_kept * n) >> 2;
   const uint32_t* ring_blk =
-      rings + static_cast<size_t>(blk) * ks1 * 2 * n;
+      rings + static_cast<size_t>(blk) * ks1 * n_words * 2 * n;
   uint32_t* out_row = reinterpret_cast<uint32_t*>(
       out + static_cast<size_t>(rowi) * ks1 * n_kept * n);
   const uint32_t wrap = static_cast<uint32_t>(2 * n - 1);
@@ -204,8 +227,10 @@ __global__ void build_tables_kernel(const uint32_t* __restrict__ rings,
     const int c0 = (w << 2) & (n - 1);
     const int t = (w << 2) >> log2n;  // kj * n_kept + li
     const int kj = t / n_kept;
-    const int shift = 8 * (limb_drop + t - kj * n_kept);
-    const uint32_t* ring = ring_blk + static_cast<size_t>(kj) * 2 * n;
+    const int g = limb_drop + t - kj * n_kept;  // global limb 4*word + byte
+    const int shift = 8 * (g & 3);
+    const uint32_t* ring =
+        ring_blk + static_cast<size_t>(kj * n_words + (g >> 2)) * 2 * n;
     uint32_t packed = 0;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -228,6 +253,17 @@ int row_threads(int n) {  // one thread per 4 coefficients, at most 1024
   return t < 1024 ? t : 1024;
 }
 
+template <typename T>
+int launch_rotdig(const void* acc, const void* a_hat, void* d8, int batch,
+                  int ks1, int n, int base_log, int level, int n_sub,
+                  void* stream) {
+  rotdig_kernel<T><<<dim3(batch, ks1), row_threads(n), n * sizeof(T),
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(acc), static_cast<const int32_t*>(a_hat),
+      static_cast<int8_t*>(d8), batch, ks1, n, base_log, level, n_sub);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -237,24 +273,29 @@ const char* ctt_error_string(int err) {
 }
 
 int ctt_build_tables(const void* rings, void* out, int r_blocks, int ks1,
-                     int n, int n_kept, int limb_drop, void* stream) {
+                     int n, int n_kept, int limb_drop, int n_words,
+                     void* stream) {
   const int words = (ks1 * n_kept * n) / 4;
   const int threads = words < 256 ? words : 256;
   build_tables_kernel<<<r_blocks * n, threads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rings), static_cast<int8_t*>(out), ks1, n,
-      log2_int(n), n_kept, limb_drop);
+      log2_int(n), n_kept, limb_drop, n_words);
   return static_cast<int>(cudaGetLastError());
 }
 
 int ctt_rotdig(const void* acc, const void* a_hat, void* d8, int batch,
                int ks1, int n, int base_log, int level, int n_sub,
                void* stream) {
-  rotdig_kernel<<<dim3(batch, ks1), row_threads(n), n * sizeof(uint32_t),
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(acc), static_cast<const int32_t*>(a_hat),
-      static_cast<int8_t*>(d8), batch, ks1, n, base_log, level, n_sub);
-  return static_cast<int>(cudaGetLastError());
+  return launch_rotdig<uint32_t>(acc, a_hat, d8, batch, ks1, n, base_log,
+                                 level, n_sub, stream);
+}
+
+int ctt_rotdig64(const void* acc, const void* a_hat, void* d8, int batch,
+                 int ks1, int n, int base_log, int level, int n_sub,
+                 void* stream) {
+  return launch_rotdig<uint64_t>(acc, a_hat, d8, batch, ks1, n, base_log,
+                                 level, n_sub, stream);
 }
 
 int ctt_rotdig_recombine(const void* s, const void* acc, const void* a_hat,

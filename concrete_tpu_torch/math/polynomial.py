@@ -1,4 +1,5 @@
-"""Negacyclic polynomial operations (mod X^N + 1) on u32 torus tensors.
+"""Negacyclic polynomial operations (mod X^N + 1) on u32 / u64 torus tensors
+(int32 / int64 carriers).
 
 A monomial product is a signed gather: coefficient c of X^d * p is
 p[(c - d) mod N], negated when (c - d) mod 2N >= N (X^N == -1). The JAX
@@ -16,17 +17,22 @@ Example (multiply by X: the wrapped coefficient is negated):
     >>> key = torch.tensor([[0, 1, 0, 0]])               # X
     >>> to_numpy(negacyclic_multisum(poly[None], key)).tolist()
     [4294967293, 0, 1, 2]
+    >>> poly64 = from_numpy(np.array([1 << 63, 0, 0, 5], dtype=np.uint64))
+    >>> to_numpy(negacyclic_multisum(poly64[None], key)).tolist()
+    [18446744073709551611, 9223372036854775808, 0, 0]
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..torus import bits_of
+
 
 def negacyclic_monomial_mul(poly: torch.Tensor, degree) -> torch.Tensor:
     """poly * X^degree mod (X^N + 1) (polynomial.rs:685-707).
 
-    poly: [..., N] int32; degree: int or integer tensor broadcastable against
+    poly: [..., N] int32 or int64; degree: int or integer tensor broadcastable against
     poly.shape[:-1], read mod 2N."""
     n = poly.shape[-1]
     degree = torch.as_tensor(degree, dtype=torch.int64, device=poly.device)
@@ -44,26 +50,33 @@ def negacyclic_monomial_div(poly: torch.Tensor, degree) -> torch.Tensor:
 
 
 def negacyclic_multisum(torus_polys: torch.Tensor, key: torch.Tensor):
-    """sum_j torus_polys[..., j, :] * key[j, :] mod (X^N + 1, 2^32), for a
-    binary or ternary key [k, N] (entries in {-1, 0, 1}).
+    """sum_j torus_polys[..., j, :] * key[j, :] mod (X^N + 1, 2^bits), for a
+    binary or ternary key [k, N] (entries in {-1, 0, 1}) and u32 (int32) or
+    u64 (int64) torus polynomials.
 
-    Key generation's mask-times-key product. It is exact: the products are
-    computed in float64, where every partial sum stays below
-    k*N*2^32 <= 2^53 for k*N <= 2^21, and reduced mod 2^32 in int64."""
+    Key generation's mask-times-key product. It is exact: each unsigned
+    32-bit word of the torus values (one for u32, two for u64) is multiplied
+    in float64, where every partial sum stays below k*N*2^32 <= 2^53 for
+    k*N <= 2^21, and the word products are recombined mod 2^bits in int64."""
     k, n = key.shape
     if k * n > (1 << 21):
         raise ValueError(f"k*N={k * n}: float64 sums would not stay exact")
     if int(key.to(torch.int64).abs().max()) > 1:
         raise ValueError("key entries must lie in {-1, 0, 1}")
+    bits = bits_of(torus_polys)
     dev = torus_polys.device
     # M[j, i, :] = X^i * key_j, so (a_j * key_j) = sum_i a_j[i] M[j, i, :]
     rows = torch.arange(n, device=dev)
     mats = negacyclic_monomial_mul(
         key.to(device=dev, dtype=torch.int32)[:, None, :], rows[None, :])
-    unsigned = torus_polys.to(torch.int64) & 0xFFFFFFFF
+    mats = mats.reshape(k * n, n).to(torch.float64)
+    wide = torus_polys.to(torch.int64).reshape(-1, k * n)
+    out = torch.zeros((wide.shape[0], n), dtype=torch.int64, device=dev)
+    for w in range(bits // 32):
+        word = (wide >> (32 * w)) & 0xFFFFFFFF
+        out += (word.to(torch.float64) @ mats).to(torch.int64) << (32 * w)
     lead = torus_polys.shape[:-2]
-    prod = unsigned.reshape(-1, k * n).to(torch.float64) @ \
-        mats.reshape(k * n, n).to(torch.float64)
-    wrapped = prod.to(torch.int64) & 0xFFFFFFFF
-    return (wrapped - ((wrapped >> 31) << 32)).to(torch.int32).reshape(
-        lead + (n,))
+    if bits == 32:
+        out = out & 0xFFFFFFFF
+        out = (out - ((out >> 31) << 32)).to(torch.int32)
+    return out.reshape(lead + (n,))

@@ -10,7 +10,7 @@ Each C entry point launches one kernel on the stream it is given and
 returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
 
     >>> SOURCE.relative_to(_PKG).as_posix(), sorted(_SIGNATURES)
-    ('csrc/mxu_kernels.cu', ['ctt_build_tables', 'ctt_rotdig', 'ctt_rotdig_recombine'])
+    ('csrc/mxu_kernels.cu', ['ctt_build_tables', 'ctt_rotdig', 'ctt_rotdig64', 'ctt_rotdig_recombine'])
 """
 
 from __future__ import annotations
@@ -32,10 +32,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # entry point -> (pointer arguments, int arguments); the stream comes last
 _SIGNATURES = {
-    "ctt_build_tables": (2, 5),
+    "ctt_build_tables": (2, 6),
     "ctt_rotdig": (3, 6),
+    "ctt_rotdig64": (3, 6),
     "ctt_rotdig_recombine": (5, 8),
 }
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device of an entry point: `device` when given, else the GPU.
+    There is no silent fallback: without CUDA, a call that names no device
+    raises, and the CPU is used only when asked for (device="cpu").
+
+    >>> resolve_device("cpu")
+    device(type='cpu')
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
 
 
 def _nvcc() -> str:

@@ -1,23 +1,28 @@
-"""u32 torus carriers and torus numerics for the PyTorch port.
+"""u32 and u64 torus carriers and torus numerics for the PyTorch port.
 
-A u32 torus value t stands for the real t / 2^32. The port carries such
-values as ``torch.int32`` bit patterns: CPU torch implements wrapping
-``+``, ``-``, ``*`` and ``<<`` on int32 but raises on uint32 arithmetic, so
-the unsigned view exists only at the numpy boundary (``np.uint32``).
-int32 ``>>`` is arithmetic; every right shift that the JAX package makes on
-a uint32 array is a logical one and goes through :func:`lshr` here.
+A torus value t of width bits stands for the real t / 2^bits. The port
+carries u32 values as ``torch.int32`` and u64 values as ``torch.int64`` bit
+patterns: CPU torch implements wrapping ``+``, ``-``, ``*`` and ``<<`` on
+the signed types but not the unsigned arithmetic the JAX package relies on,
+so the unsigned view exists only at the numpy boundary (``np.uint32``,
+``np.uint64``). Signed ``>>`` is arithmetic; every right shift that the JAX
+package makes on an unsigned array is a logical one and goes through
+:func:`lshr` here. Signed ``<`` and ``>`` are not the unsigned order.
 
 Example:
     >>> import numpy as np
-    >>> from concrete_tpu_torch.torus import from_numpy, to_numpy, lshr, i32
+    >>> from concrete_tpu_torch.torus import from_numpy, to_numpy, lshr, i32, i64
     >>> t = from_numpy(np.array([0xFFFFFFF0, 7], dtype=np.uint32))
     >>> t.dtype, to_numpy(lshr(t, 4)).tolist()
     (torch.int32, [268435455, 0])
     >>> i32(0xE0000000)
     -536870912
+    >>> w = from_numpy(np.array([1 << 63], dtype=np.uint64))
+    >>> w.dtype, to_numpy(lshr(w, 60)).tolist(), i64(1 << 63)
+    (torch.int64, [8], -9223372036854775808)
     >>> from concrete_tpu_torch.torus import from_torus_f64
-    >>> int(from_torus_f64(0.5))
-    2147483648
+    >>> int(from_torus_f64(0.5)), int(from_torus_f64(0.5, 64))
+    (2147483648, 9223372036854775808)
 """
 
 from __future__ import annotations
@@ -27,31 +32,55 @@ import dataclasses
 import numpy as np
 import torch
 
+UNSIGNED = {32: np.uint32, 64: np.uint64}
+_SIGNED_NP = {32: np.int32, 64: np.int64}
+_CARRIER = {32: torch.int32, 64: torch.int64}
+_BITS = {torch.int32: 32, torch.int64: 64}
 
-def from_numpy(x, device=None) -> torch.Tensor:
-    """np.uint32 (or anything numpy casts to it) -> int32 tensor, same bits."""
-    arr = np.require(np.asarray(x, dtype=np.uint32), requirements=["C", "W"])
-    return torch.from_numpy(arr.view(np.int32)).to(device)
+
+def bits_of(t: torch.Tensor) -> int:
+    """Torus width carried by an int32 (32) or int64 (64) tensor."""
+    if t.dtype not in _BITS:
+        raise TypeError(f"torus tensors are int32 or int64, got {t.dtype}")
+    return _BITS[t.dtype]
+
+
+def carrier(bits: int) -> torch.dtype:
+    """The signed tensor type that carries a u`bits` torus value."""
+    return _CARRIER[bits]
+
+
+def from_numpy(x, device=None, bits: int | None = None) -> torch.Tensor:
+    """np.uint32 / np.uint64 (or anything numpy casts to it) -> int32 /
+    int64 tensor, same bits. `bits` defaults to 64 for a np.uint64 array and
+    to 32 for anything else."""
+    if bits is None:
+        bits = 64 if getattr(x, "dtype", None) == np.uint64 else 32
+    arr = np.require(np.asarray(x, dtype=UNSIGNED[bits]),
+                     requirements=["C", "W"])
+    return torch.from_numpy(arr.view(_SIGNED_NP[bits])).to(device)
 
 
 def to_numpy(t) -> np.ndarray:
-    """int32 tensor (any device) -> np.uint32 array, same bits. numpy input
-    passes through as uint32."""
+    """int32 / int64 tensor (any device) -> np.uint32 / np.uint64 array, same
+    bits. numpy input passes through; it becomes uint32 unless it is u64."""
     if isinstance(t, torch.Tensor):
-        if t.dtype != torch.int32:
-            raise TypeError(f"u32 torus tensors are int32, got {t.dtype}")
-        return t.detach().cpu().numpy().view(np.uint32)
+        bits = bits_of(t)
+        return t.detach().cpu().numpy().view(UNSIGNED[bits])
+    if getattr(t, "dtype", None) == np.uint64:
+        return np.asarray(t)
     return np.asarray(t, dtype=np.uint32)
 
 
-def as_torus(x, device=None) -> torch.Tensor:
-    """Tensor view of a u32 torus array: int32 tensors pass through (moved to
-    `device` when one is given), numpy / Python values go via np.uint32."""
+def as_torus(x, device=None, bits: int | None = None) -> torch.Tensor:
+    """Tensor view of a torus array: int32 / int64 tensors pass through
+    (moved to `device` when one is given), numpy / Python values go through
+    :func:`from_numpy`."""
     if isinstance(x, torch.Tensor):
-        if x.dtype != torch.int32:
-            raise TypeError(f"u32 torus tensors are int32, got {x.dtype}")
+        if bits is not None and bits_of(x) != bits:
+            raise TypeError(f"expected a u{bits} torus tensor, got {x.dtype}")
         return x if device is None else x.to(device)
-    return from_numpy(x, device)
+    return from_numpy(x, device, bits)
 
 
 def i32(u: int) -> int:
@@ -60,39 +89,51 @@ def i32(u: int) -> int:
     return ((int(u) + (1 << 31)) % (1 << 32)) - (1 << 31)
 
 
+def i64(u: int) -> int:
+    """The int64 bit pattern of a u64 value given as a Python int (for
+    constants >= 2^63, which overflow a torch int64 scalar)."""
+    return ((int(u) + (1 << 63)) % (1 << 64)) - (1 << 63)
+
+
 def lshr(x: torch.Tensor, s: int) -> torch.Tensor:
-    """Logical right shift of u32 bit patterns held in int32: the arithmetic
-    shift followed by a mask of the 32 - s low bits."""
+    """Logical right shift of u32 / u64 bit patterns held in int32 / int64:
+    the arithmetic shift followed by a mask of the bits - s low bits."""
+    bits = bits_of(x)
     if s == 0:
         return x
-    if s >= 32:
+    if s >= bits:
         return torch.zeros_like(x)
-    return (x >> s) & ((1 << (32 - s)) - 1)
+    return (x >> s) & ((1 << (bits - s)) - 1)
 
 
-def from_torus_f64(x) -> np.ndarray:
-    """Closest u32 representation of real torus values: take the fractional
-    part, scale by 2^32, round half up, then saturate like Rust's ``as``
-    (the same rule as concrete_tpu/torus.py)."""
+def from_torus_f64(x, bits: int = 32) -> np.ndarray:
+    """Closest unsigned representation of real torus values: take the
+    fractional part, scale by 2^bits, round half up, then saturate like
+    Rust's ``as`` (the same rule as concrete_tpu/torus.py)."""
     x = np.asarray(x, dtype=np.float64)
-    fract = (x - np.floor(x)) * 2.0 ** 32
+    fract = (x - np.floor(x)) * 2.0 ** bits
     carry = fract - np.floor(fract)
     fract = np.where(carry >= 0.5, fract + 1.0, fract)
-    fract = np.minimum(fract, 2.0 ** 32 - 1)
-    return np.floor(fract).astype(np.uint32)
+    fract = np.minimum(fract, 2.0 ** bits - 1)
+    return np.floor(fract).astype(UNSIGNED[bits])
+
+
+def into_torus_f64(t, bits: int) -> np.ndarray:
+    """Closest float of an unsigned torus element (torus/mod.rs:50-55)."""
+    return np.asarray(t).astype(np.float64) * 2.0 ** -bits
 
 
 @dataclasses.dataclass
 class EncryptionRandom:
     """Mask and noise streams for encryption and key generation: two
     ``numpy.random.Generator`` objects seeded from ``mask_seed`` and
-    ``noise_seed``. Masks are uniform u32; noise is Gaussian on the real
-    torus, rounded with :func:`from_torus_f64`.
+    ``noise_seed``. Masks are uniform u32 or u64; noise is Gaussian on the
+    real torus, rounded with :func:`from_torus_f64`.
 
     These are not the AES-CTR streams of ``concrete_tpu.csprng``, so keys and
     ciphertexts made here differ from the JAX package's for the same seeds;
     keys made by the JAX package can be loaded (``ClientKey.load``,
-    ``ServerKey.load``)."""
+    ``ServerKey.load``, the ``highlevel`` keys' ``load``)."""
 
     mask: np.random.Generator
     noise: np.random.Generator
@@ -102,8 +143,9 @@ class EncryptionRandom:
         return cls(np.random.default_rng(mask_seed),
                    np.random.default_rng(noise_seed))
 
-    def fill_mask(self, shape) -> np.ndarray:
-        return self.mask.integers(0, 1 << 32, size=shape, dtype=np.uint32)
+    def fill_mask(self, shape, bits: int = 32) -> np.ndarray:
+        return self.mask.integers(0, 1 << bits, size=shape,
+                                  dtype=UNSIGNED[bits])
 
-    def fill_noise(self, shape, std: float) -> np.ndarray:
-        return from_torus_f64(self.noise.normal(0.0, std, size=shape))
+    def fill_noise(self, shape, std: float, bits: int = 32) -> np.ndarray:
+        return from_torus_f64(self.noise.normal(0.0, std, size=shape), bits)

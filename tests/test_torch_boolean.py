@@ -3,6 +3,8 @@ concrete_tpu are carried across through its npz files, and every gate of
 the port must return the very ciphertexts the JAX package returns; the
 port's own keys must give the truth tables."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -146,3 +148,20 @@ def test_server_key_rejects_mismatched_arrays(port_keys):
         boolean_t.ServerKey.from_arrays(
             np.zeros((4, 2, 2, 2, 8192), np.uint32),
             np.zeros((8192, 2, 5), np.uint32), big, device="cpu").resolved_backend()
+
+
+@pytest.mark.parametrize("gate", ["and_", "xor", "mux"])
+@pytest.mark.parametrize("fast", [{}, {"levels": 1}, {"limb_drop": 1}],
+                         ids=["levels2", "levels1", "drop1"])
+def test_fast_mode_gates_match_jax(jax_keys, gate, fast):
+    """ServerKey.with_fast_mode on JAX keys: the same ciphertexts as the JAX
+    package's fast-mode key on its mxu backend."""
+    _, sks_j, _, sks_t, (a, b, c) = jax_keys
+    fast_j = dataclasses.replace(sks_j, backend="mxu").with_fast_mode(**fast)
+    fast_t = sks_t.with_fast_mode(**fast)
+    assert fast_t.cfg.pbs_level == fast_j.cfg.pbs_level
+    assert fast_t.cfg.mxu_limb_drop == fast_j.cfg.mxu_limb_drop
+    assert fast_t.bsk_standard.shape == fast_j.bsk_standard.shape
+    want = np.asarray(_call(fast_j, gate, a, b, c))
+    np.testing.assert_array_equal(torus.to_numpy(_call(fast_t, gate, a, b, c)),
+                                  want)

@@ -4,7 +4,8 @@ Marked `cuda`: these tests need an NVIDIA Hopper GPU and nvcc, and skip
 anywhere else (the check runs inside a fixture, never at import). On a GPU
 machine (where JAX, which tests/conftest.py imports, may be absent):
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py
-Every comparison is exact (integer arithmetic mod 2^32, tolerance 0)."""
+Every comparison is exact (integer arithmetic mod 2^32 and 2^64, tolerance
+0)."""
 
 from pathlib import Path
 
@@ -46,10 +47,20 @@ def _degrees(rng, n, b, dev):
     return torch.from_numpy(a).to(dev)
 
 
-def _plan(ks1, n, bl, l, n_sub, drop=0):
+def _plan(ks1, n, bl, l, n_sub, drop=0, bits=32):
     return bsx.MxuPlan(lwe_dimension=4, glwe_size=ks1, polynomial_size=n,
                        base_log=bl, level=l, n_sub=n_sub, ks_base_log=2,
-                       ks_level=3, limb_drop=drop)
+                       ks_level=3, limb_drop=drop, bits=bits)
+
+
+def _u64(rng, shape, dev):
+    """Random u64 words with the word-boundary values of
+    tests/test_bootstrap_mxu.py in the first two rows."""
+    acc = rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)
+    acc[0, 0, :4] = [0, 1, 0xFFFF_FFFF, 0x1_0000_0000]
+    acc[0, 1, :4] = [0xFFFF_FFFF_FFFF_FFFF, 0x8000_0000,
+                     0x7FFF_FFFF_FFFF_FFFF, 0x8000_0000_0000_0000]
+    return torus.from_numpy(acc, dev)
 
 
 @pytest.mark.parametrize("r_blocks,ks1,n,drop", [
@@ -77,6 +88,37 @@ def test_rotdig_kernel(dev, ks1, n, bl, l, n_sub, b):
     assert bsx.rotdig.launches == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, bsx.rotdig_plain(plan, acc, a_hat))
+
+
+@pytest.mark.parametrize("r_blocks,ks1,n,drop", [
+    (6, 2, 1024, 0), (6, 2, 1024, 2), (6, 2, 64, 5), (12, 2, 256, 1),
+    (3, 3, 4096, 0)])
+def test_build_tables_u64_kernel(dev, r_blocks, ks1, n, drop):
+    rings = _u32(np.random.default_rng(n + drop), (r_blocks, 2 * ks1, 2 * n),
+                 dev)
+    before = bsx.build_tables.launches
+    got = bsx.build_tables(rings, n, drop, 2)
+    assert bsx.build_tables.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, bsx.build_tables_plain(rings, n, drop, 2))
+
+
+@pytest.mark.parametrize("ks1,n,bl,l,n_sub,b", [
+    (2, 1024, 7, 3, 1, 64), (2, 1024, 10, 3, 2, 33), (2, 1024, 16, 2, 3, 16),
+    (2, 1024, 16, 3, 3, 16), (3, 64, 16, 4, 3, 8), (2, 4096, 7, 3, 1, 4),
+    (2, 64, 31, 2, 5, 8), (5, 256, 7, 2, 1, 64), (2, 4, 7, 2, 1, 5)])
+def test_rotdig64_kernel(dev, ks1, n, bl, l, n_sub, b):
+    """K4 at the int4 configuration's shape, the three cases of
+    tests/test_bootstrap_mxu.py's u64 kernel test, prefixes of 48, 62 and 64
+    bits (beyond the TPU kernel), N = 4 and N = 4096."""
+    plan = _plan(ks1, n, bl, l, n_sub, bits=64)
+    rng = np.random.default_rng(7 * n + b)
+    acc, a_hat = _u64(rng, (ks1, b, n), dev), _degrees(rng, n, b, dev)
+    before = bsx.rotdig64.launches
+    got = bsx.rotdig64(plan, acc, a_hat)
+    assert bsx.rotdig64.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, bsx.rotdig64_plain(plan, acc, a_hat))
 
 
 @pytest.mark.parametrize("ks1,n,bl,l,n_sub,drop,b", [
@@ -152,3 +194,23 @@ def test_gates_on_gpu_match_cpu(dev):
     got = sks.mux(ca, cb, cc)
     assert torch.equal(got.cpu(), cpu.mux(ca, cb, cc))
     np.testing.assert_array_equal(cks.decrypt(got), np.where(a, b, c))
+
+
+@pytest.mark.parametrize("bl,l,drop", [(7, 3, 0), (7, 3, 2), (10, 3, 0)])
+def test_u64_blind_rotation_on_gpu_matches_cpu(dev, bl, l, drop):
+    cfg = bs.ServerConfig(lwe_dimension=10, glwe_dimension=1,
+                          polynomial_size=256, pbs_base_log=bl, pbs_level=l,
+                          ks_base_log=2, ks_level=8, bits=64,
+                          mxu_limb_drop=drop)
+    rng = np.random.default_rng(bl + drop)
+    bsk = rng.integers(0, 1 << 64, size=(10, l, 2, 2, 256), dtype=np.uint64)
+    rings = torus.from_numpy(bsx.bsk_to_mxu(bsk, cfg))
+    lut = torus.from_numpy(rng.integers(0, 1 << 64, size=(2, 256),
+                                        dtype=np.uint64))
+    lwe = torus.from_numpy(rng.integers(0, 1 << 64, size=(40, 11),
+                                        dtype=np.uint64))
+    want = bsx.bootstrap_mxu(cfg, rings, lut, lwe)
+    before = bsx.rotdig64.launches
+    got = bsx.bootstrap_mxu(cfg, rings.to(dev), lut.to(dev), lwe.to(dev))
+    assert bsx.rotdig64.launches == before + 10
+    assert torch.equal(got.cpu(), want)
