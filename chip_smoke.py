@@ -5,7 +5,8 @@
 
 Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
 
-  build   compile csrc/mxu_kernels.cu for sm_90a (concrete_tpu_torch/_build/).
+  build   compile csrc/mxu_kernels.cu and csrc/nuss_kernels.cu for sm_90a,
+          one nvcc each, in parallel (concrete_tpu_torch/_build/).
   A       each hand-written kernel against its plain PyTorch version on the
           card, at the shapes of the main paths, bit for bit, with both
           device times (CUDA graph replay between CUDA events) and the
@@ -30,6 +31,18 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           32 rows and 64 keyswitched rows recomputed on the CPU must match
           the card bit for bit; build_tables and rotdig64 must launch; the
           median time of 5 PBS calls (exact and fast) and of a keyswitch.
+  D       the Nussbaumer backend (N > 4096 and any N by request): AND and
+          XOR on a backend="nuss" twin of a TFHE_LIB key, 2048 rows, every
+          row on its truth table and equal to the mxu backend's; the int4
+          LUT of phase C at N = 8192 through the high-level API (LWE128_630,
+          RLWEParams(8192, 1, -62), PBS base_log 7 level 3, u64), 256 values
+          plus one multi-LUT call, every PBS row decoded under the big key;
+          the JAX suite's engine rows (benchmarks/suite.py "nuss": n=100,
+          k=1, base_log 2, level 3, B=256, N in {8192, 16384} x {u32, u64})
+          with key preparation on the card, the median of 5 PBS calls and
+          one profiled call each; the first 2 CMux steps of 8 rows of the
+          u32 N=8192 cell recomputed on the CPU must match the card; K1 and
+          K5-K7 must launch.
 
 The last lines are the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line and {"ok": true, "device": {...}}. Any failure
@@ -38,6 +51,7 @@ raises, so the exit code is non-zero and no result line is printed.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -51,6 +65,7 @@ import torch
 from concrete_tpu_torch import boolean, highlevel as hl, torus
 from concrete_tpu_torch.core import bootstrap as bs
 from concrete_tpu_torch.core import bootstrap_mxu as bsx
+from concrete_tpu_torch.core import bootstrap_nuss as bsn
 from concrete_tpu_torch.core import lwe as lwe_ops
 from concrete_tpu_torch.highlevel.lwe import _accumulator, generate_functional_lut
 from concrete_tpu_torch.ops import _cuda
@@ -66,14 +81,24 @@ TIERS = {"TPU128": [2048, 8192], "DEFAULT": [2048], "TFHE_LIB": [2048]}
 REQUESTS = {"TPU128": [100, 2048, 5000], "DEFAULT": [100, 2048],
             "TFHE_LIB": [100, 2048]}
 GATES = ("and_", "xor", "nand", "mux")
-SOURCE = "concrete_tpu_torch/csrc/mxu_kernels.cu"
-REPLACES = {"build_tables": "concrete_tpu/core/bootstrap_mxu.py:238",
-            "rotdig": "concrete_tpu/core/bootstrap_mxu.py:449",
-            "rotdig_recombine": "concrete_tpu/core/bootstrap_mxu.py:599",
-            "rotdig64": "concrete_tpu/core/bootstrap_mxu.py:531"}
-# the kernels each main path must launch (phase B: u32 gates, C: u64 PBS)
+MXU_SOURCE = "concrete_tpu_torch/csrc/mxu_kernels.cu"
+NUSS_SOURCE = "concrete_tpu_torch/csrc/nuss_kernels.cu"
+# kernel -> (its source, the TPU kernel it replaces)
+REPLACES = {
+    "build_tables": (MXU_SOURCE, "concrete_tpu/core/bootstrap_mxu.py:238"),
+    "rotdig": (MXU_SOURCE, "concrete_tpu/core/bootstrap_mxu.py:449"),
+    "rotdig_recombine": (MXU_SOURCE, "concrete_tpu/core/bootstrap_mxu.py:599"),
+    "rotdig64": (MXU_SOURCE, "concrete_tpu/core/bootstrap_mxu.py:531"),
+    "recombine_inv": (NUSS_SOURCE, "concrete_tpu/core/bootstrap_nuss.py:438"),
+    "recombine_inv64": (NUSS_SOURCE, "concrete_tpu/core/bootstrap_nuss.py:657"),
+    "rotdig_fwd_nuss": (NUSS_SOURCE, "concrete_tpu/core/bootstrap_nuss.py:833"),
+}
+# the kernels each main path must launch (phase B: u32 gates, C: u64 PBS,
+# D: the Nussbaumer backend on both tori)
 PATH_KERNELS = {"B": ("build_tables", "rotdig", "rotdig_recombine"),
-                "C": ("build_tables", "rotdig64")}
+                "C": ("build_tables", "rotdig64"),
+                "D": ("build_tables", "recombine_inv", "recombine_inv64",
+                      "rotdig_fwd_nuss")}
 CPU_ROWS = 32
 # the H100 SXM's published peaks: HBM bytes/s, and its float32 non-tensor
 # rate, taken for the kernels' integer ALU work
@@ -84,6 +109,22 @@ INT4 = {"lwe": hl.LWE128_630, "rlwe": hl.RLWE128_1024_1, "pbs": (7, 3),
         "ks": (2, 8), "batch": 2048}
 CPU_STEPS = 16
 KS_CPU_ROWS = 64
+# phase D: the JAX suite's large-N engine rows (benchmarks/suite.py "nuss")
+NUSS_ENGINE = {"lwe_dimension": 100, "pbs": (2, 3), "batch": 256,
+               "sizes": (8192, 16384)}
+# and the int4 LUT at N = 8192: sigma 2^-62 is 4 units of the 64-bit torus
+INT4_8192 = {"rlwe": hl.RLWEParams(8192, 1, -62), "batch": 256}
+NUSS_CPU_STEPS, NUSS_CPU_ROWS = 2, 8
+NUSS_GATE_ROWS = 2048
+
+
+def reset_launch_counts():
+    bsx.reset_launch_counts()
+    bsn.reset_launch_counts()
+
+
+def launch_counts() -> dict[str, int]:
+    return {**bsx.launch_counts(), **bsn.launch_counts()}
 
 
 def log(**fields):
@@ -199,6 +240,64 @@ def kernel_cases(dev):
             lambda rings=rings, d=drop, rhs=rhs: bsx.build_tables(rings, n, d, 2, out=rhs),
             lambda rings=rings, d=drop: bsx.build_tables_plain(rings, n, d, 2),
             (rings,)))
+    cases += nuss_kernel_cases(dev, rng, u32, u64, degrees)
+    return cases
+
+
+def nuss_config(n: int, bits: int, base_log: int, level: int,
+                lwe_dimension: int = NUSS_ENGINE["lwe_dimension"]):
+    return bs.ServerConfig(
+        lwe_dimension=lwe_dimension, glwe_dimension=1, polynomial_size=n,
+        pbs_base_log=base_log, pbs_level=level, ks_base_log=2, ks_level=5,
+        bits=bits)
+
+
+def nuss_kernel_cases(dev, rng, u32, u64, degrees):
+    """Phase A's Nussbaumer rows at the phase-D shapes (B=256, k+1=2,
+    L=32): K5 at the u32 N=8192 and 16384 engine shapes, K6 at u64 N=8192,
+    K7 at u32 N=8192 (n_sub 1) and at base_log 7 (n_sub 2, u32 and the u64
+    int4 cell), K1 on the u64 N=8192 rings (3 word planes, 9 limbs)."""
+    b = NUSS_ENGINE["batch"]
+    cases = []
+
+    def dot_output(plan):
+        return torch.from_numpy(rng.integers(
+            -(1 << 31), 1 << 31, size=(plan.two_l, b, plan.glwe_size *
+                                       plan.limbs_used * plan.m),
+            dtype=np.int32)).to(dev)
+
+    for n, bits in ((8192, 32), (16384, 32), (8192, 64)):
+        plan = bsn.NussPlan.from_config(nuss_config(n, bits, *NUSS_ENGINE["pbs"]))
+        kernel, plain = ((bsn.recombine_inv, bsn.recombine_inv_plain) if bits == 32
+                         else (bsn.recombine_inv64, bsn.recombine_inv64_plain))
+        s = dot_output(plan)
+        out = torch.empty((2, b, plan.l, plan.m), device=dev,
+                          dtype=torch.int32 if bits == 32 else torch.int64)
+        cases.append((kernel.__name__, f"u{bits} N={n} L={plan.l} B={b}",
+                      lambda k=kernel, p=plan, s=s, o=out: k(p, s, out=o),
+                      lambda f=plain, p=plan, s=s: f(p, s), (s,)))
+    for bits, (bl, lv) in ((32, NUSS_ENGINE["pbs"]), (32, INT4["pbs"]),
+                           (64, INT4["pbs"])):
+        plan = bsn.NussPlan.from_config(nuss_config(8192, bits, bl, lv))
+        shape = (2, b, plan.l, plan.m)
+        acc = u32(shape) if bits == 32 else u64((2, b, plan.l * plan.m)).view(shape)
+        a_hat = degrees(8192, b)
+        d8 = torch.empty((plan.two_l, b, plan.row_blocks * plan.m),
+                         dtype=torch.int8, device=dev)
+        cases.append((
+            "rotdig_fwd_nuss", f"u{bits} N=8192 bl={bl} l={lv} n_sub={plan.n_sub} B={b}",
+            lambda p=plan, acc=acc, a=a_hat, d8=d8: bsn.rotdig_fwd_nuss(p, acc, a, out=d8),
+            lambda p=plan, acc=acc, a=a_hat: bsn.rotdig_fwd_nuss_plain(p, acc, a),
+            (acc, a_hat)))
+    plan = bsn.NussPlan.from_config(nuss_config(8192, 64, *NUSS_ENGINE["pbs"]))
+    m, nw, hd = plan.m, plan.n_words, plan.limb_hi_drop
+    rings = u32((plan.two_l * plan.row_blocks, 2 * nw, 2 * m))
+    rhs = torch.empty((plan.two_l * plan.row_blocks * m, 2 * plan.limbs_used * m),
+                      dtype=torch.int8, device=dev)
+    cases.append((
+        "build_tables", f"nuss u64 N=8192 one step ({nw} words, {plan.limbs_used} limbs)",
+        lambda: bsx.build_tables(rings, m, 0, nw, hd, out=rhs),
+        lambda: bsx.build_tables_plain(rings, m, 0, nw, hd), (rings,)))
     return cases
 
 
@@ -323,6 +422,9 @@ _KERNEL_KINDS = (("build_tables", "K1 build_tables"),
                  ("rotdig_recombine", "K3 rotdig_recombine"),
                  ("rotdig_kernel<unsigned long", "K4 rotdig64"),
                  ("rotdig_kernel<unsigned int", "K2 rotdig"),
+                 ("recombine_inv_kernel<unsigned __int128", "K6 recombine_inv64"),
+                 ("recombine_inv_kernel", "K5 recombine_inv"),
+                 ("rotdig_fwd_nuss_kernel", "K7 rotdig_fwd_nuss"),
                  ("gemm", "int8 GEMM"), ("cutlass", "int8 GEMM"))
 
 
@@ -387,6 +489,29 @@ def int4_table(x) -> float:
     return float((3 * int(round(x)) + 1) % 16)
 
 
+# the multi-LUT rounds every rotation to a multiple of 2, which doubles the
+# modulus-switch error: 3-bit messages keep it 6 sigma inside the box
+MULTI_FNS = (lambda x: float((int(round(x)) + 3) % 8),
+             lambda x: float(7 - int(round(x))))
+
+
+def multi_lut_inputs(sk, xs, seed):
+    """(3-bit encoder, ciphertexts of xs mod 8, the rows MULTI_FNS must
+    give) for one multi-LUT call."""
+    enc3 = hl.Encoder.new(0.0, 7.0, nb_bit_precision=3, nb_bit_padding=1)
+    x3 = xs % 8
+    ct3 = hl.LWE.encode_encrypt(sk, x3, enc3, mask_seed=seed,
+                                noise_seed=seed + 1)
+    return enc3, ct3, [(x3 + 3) % 8, 7 - x3]
+
+
+def check_multi_lut(label, multi, want3, big):
+    for t, (out, w) in enumerate(zip(multi, want3)):
+        if not np.array_equal(np.round(out.decrypt_decode(big)), w):
+            raise AssertionError(f"{label}: multi-LUT function {t} decodes "
+                                 "wrong")
+
+
 def check_keyswitched(label, ks, sk, enc, want, card):
     """The keyswitched rows against the noise model. With the example's
     keyswitch key (base_log 2, level 8, output noise 2^-14) the NPE puts
@@ -433,24 +558,17 @@ def phase_c(dev, card):
     want = (3 * xs + 1) % 16
     v = hl.VectorLWE.encode_encrypt(sk, xs, enc, mask_seed=28, noise_seed=29)
     fast = bsk.with_fast_mode(limb_drop=2)
-    # the multi-LUT rounds every rotation to a multiple of 2, which doubles
-    # the modulus-switch error: 3-bit messages keep it 6 sigma inside the box
-    enc3 = hl.Encoder.new(0.0, 7.0, nb_bit_precision=3, nb_bit_padding=1)
-    x3 = xs % 8
-    fns = [lambda x: float((int(round(x)) + 3) % 8),
-           lambda x: float(7 - int(round(x)))]
-    want3 = [(x3 + 3) % 8, 7 - x3]
-    ct3 = hl.LWE.encode_encrypt(sk, x3, enc3, mask_seed=30, noise_seed=31)
+    enc3, ct3, want3 = multi_lut_inputs(sk, xs, 30)
 
     t0 = time.perf_counter()
-    bsx.reset_launch_counts()
+    reset_launch_counts()
     outs = {}
     for label, key in (("exact", bsk), ("drop2", fast)):
         out = v.bootstrap_all_with_function(key, int4_table, enc)
         outs[label] = (out, out.keyswitch(ksk))
-    multi = ct3.bootstrap_with_functions(bsk, fns, enc3)
+    multi = ct3.bootstrap_with_functions(bsk, MULTI_FNS, enc3)
     torch.cuda.synchronize()
-    launches = bsx.launch_counts()
+    launches = launch_counts()
     log(phase="C", main_path_s=time.perf_counter() - t0, launches=launches)
 
     for label, (out, ks) in outs.items():
@@ -463,10 +581,8 @@ def phase_c(dev, card):
             raise AssertionError(f"int4 LUT ({label}): {wrong} of {b} PBS "
                                  "rows decode wrong")
         check_keyswitched(label, ks, sk, enc, want, card)
-    for t, (out, w) in enumerate(zip(multi, want3)):
-        if not np.array_equal(np.round(out.decrypt_decode(big)), w):
-            raise AssertionError(f"multi-LUT function {t} decodes wrong")
-    log(phase="C", multi_lut_functions=len(fns), rows=b, decoded="ok")
+    check_multi_lut("int4", multi, want3, big)
+    log(phase="C", multi_lut_functions=len(MULTI_FNS), rows=b, decoded="ok")
 
     acc = torus.from_numpy(
         _accumulator(bsk, generate_functional_lut(bsk, enc, enc, int4_table)),
@@ -507,6 +623,166 @@ def phase_c(dev, card):
     return launches
 
 
+def nuss_gates(dev, card):
+    """D, part 1: a 2048-row request through AND and XOR on a
+    backend="nuss" twin of a TFHE_LIB key (N=1024, L=32, M=32): every row on
+    its truth table and equal to the mxu backend's, bit for bit."""
+    rows = NUSS_GATE_ROWS
+    cks, sks = boolean.gen_keys(PRESETS["TFHE_LIB"], secret_seed=11,
+                                mask_seed=12, noise_seed=13, device=dev)
+    nuss = dataclasses.replace(sks, backend="nuss", _warmed_tiers=set())
+    plan = bsn.NussPlan.from_config(nuss.cfg)
+    t0 = time.perf_counter()
+    nuss.bsk_nuss  # noqa: B018 - key preparation on the card
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    (a, b, c), (ca, cb, cc) = encrypt_bools(cks, rows, 4000)
+    for gate in ("and_", "xor"):
+        got = call_gate(nuss, gate, ca, cb, cc)
+        if not np.array_equal(cks.decrypt(got), truth(gate, a, b, c)):
+            raise AssertionError(f"TFHE_LIB nuss {gate}: wrong truth table")
+        if not torch.equal(got, call_gate(sks, gate, ca, cb, cc)):
+            raise AssertionError(f"TFHE_LIB nuss {gate} differs from mxu")
+    ca, cb = torus.from_numpy(ca, dev), torus.from_numpy(cb, dev)
+    med = median_s(lambda: nuss.and_(ca, cb))
+    log(phase="D", params="TFHE_LIB nuss", L=plan.l, M=plan.m,
+        n_sub=plan.n_sub, key_prep_s=prep_s, rows=rows, gates=["and_", "xor"],
+        truth_tables="ok", equal_to_mxu=True, ms_per_call=med * 1e3,
+        gates_per_s=rows / med, card=card)
+    profile_call(f"TFHE_LIB nuss AND B={rows}", lambda: nuss.and_(ca, cb), card)
+
+
+def nuss_int4(dev, card):
+    """D, part 2: the int4 LUT of phase C at N = 8192 through the high-level
+    API (auto backend -> nuss), 256 values and one multi-LUT call; every
+    PBS row must decode under the big key."""
+    (bl, lv), b = INT4["pbs"], INT4_8192["batch"]
+    t0 = time.perf_counter()
+    sk = hl.LWESecretKey.new(INT4["lwe"], secret_seed=21)
+    rsk = hl.RLWESecretKey.new(INT4_8192["rlwe"], secret_seed=32)
+    big = rsk.to_lwe_secret_key()
+    bsk = hl.LWEBSK.new(sk, rsk, bl, lv, mask_seed=33, noise_seed=34,
+                        device=dev)
+    keygen_s = time.perf_counter() - t0
+    if bsk.resolved_backend() != "nuss":
+        raise AssertionError(f"N=8192 resolved to {bsk.resolved_backend()}")
+    plan = bsn.NussPlan.from_config(bsk.cfg)
+    t0 = time.perf_counter()
+    rings = bsk.bsk_nuss
+    torch.cuda.synchronize()
+    log(phase="D", cell="int4 N=8192", backend="nuss", L=plan.l, M=plan.m,
+        n_sub=plan.n_sub, keygen_s=keygen_s,
+        key_prep_s=time.perf_counter() - t0,
+        rings_gb=rings.numel() * 4 / 1e9)
+
+    enc = hl.Encoder.new(0.0, 15.0, nb_bit_precision=4, nb_bit_padding=1)
+    xs = np.random.default_rng(35).integers(0, 16, size=b).astype(np.float64)
+    want = (3 * xs + 1) % 16
+    v = hl.VectorLWE.encode_encrypt(sk, xs, enc, mask_seed=36, noise_seed=37)
+    out = v.bootstrap_all_with_function(bsk, int4_table, enc)
+    wrong = int(np.sum(np.round(out.decrypt_decode(big)) != want))
+    err = (big.inner.decrypt(out.data) - enc.encode_core(want)).view(np.int64)
+    log(phase="D", cell="int4 N=8192", stage="pbs", rows=b, wrong_rows=wrong,
+        phase_std=float(np.std(err * 2.0 ** -64)),
+        tracked_std=math.sqrt(float(out.variances[0])), card=card)
+    if wrong:
+        raise AssertionError(f"int4 LUT at N=8192: {wrong} of {b} PBS rows "
+                             "decode wrong")
+    enc3, ct3, want3 = multi_lut_inputs(sk, xs, 38)
+    check_multi_lut("int4 N=8192",
+                    ct3.bootstrap_with_functions(bsk, MULTI_FNS, enc3), want3,
+                    big)
+    log(phase="D", cell="int4 N=8192", multi_lut_functions=len(MULTI_FNS),
+        rows=b, decoded="ok")
+    acc = torus.from_numpy(
+        _accumulator(bsk, generate_functional_lut(bsk, enc, enc, int4_table)),
+        dev)
+    cts = torus.from_numpy(v.data, dev)
+    med = median_s(lambda: bsk.run_bootstrap(acc, cts), reps=3)
+    log(phase="D", cell="int4 N=8192", batch=b, ms_per_call=med * 1e3,
+        pbs_per_s=b / med, card=card)
+    profile_call(f"int4 N=8192 PBS B={b}", lambda: bsk.run_bootstrap(acc, cts),
+                 card)
+
+
+def nuss_engine(dev, card):
+    """D, part 3: the JAX suite's engine rows at full width and depth, random
+    keys from a fixed seed; key preparation on the card, the median of 5
+    PBS calls, one profiled call. Returns the CPU cross-check of the u32
+    N=8192 cell: the first CMux steps of a few rows."""
+    rng = np.random.default_rng(41)
+    n_lwe, (bl, lv), b = (NUSS_ENGINE["lwe_dimension"], NUSS_ENGINE["pbs"],
+                          NUSS_ENGINE["batch"])
+    cpu_check = None
+    for n in NUSS_ENGINE["sizes"]:
+        for bits in (32, 64):
+            cfg = nuss_config(n, bits, bl, lv, n_lwe)
+            plan = bsn.NussPlan.from_config(cfg)
+            dt = torus.UNSIGNED[bits]
+            bsk = rng.integers(0, np.iinfo(dt).max, size=(n_lwe, lv, 2, 2, n),
+                               dtype=dt, endpoint=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rings = bsn.bsk_to_nuss(bsk, cfg, device=dev)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            lut = bs.trivial_lut_constant(cfg, 1 << (bits - 3), dev)
+            cts = torus.from_numpy(rng.integers(
+                0, np.iinfo(dt).max, size=(b, n_lwe + 1), dtype=dt,
+                endpoint=True), dev)
+            label = f"engine u{bits} N={n}"
+            run = (lambda cfg=cfg, rings=rings, lut=lut, cts=cts:
+                   bsn.bootstrap_nuss(cfg, rings, lut, cts))
+            out = run()
+            if out.shape != (b, n + 1):
+                raise AssertionError(f"{label}: output {tuple(out.shape)}")
+            med = median_s(run)
+            log(phase="D", cell=label, L=plan.l, M=plan.m, limbs=plan.limbs_used,
+                key_prep_s=prep_s, batch=b, ms_per_call=med * 1e3,
+                pbs_per_s=b / med, card=card)
+            profile_call(f"{label} PBS B={b}", run, card)
+            if n == NUSS_ENGINE["sizes"][0] and bits == 32:
+                cpu_check = (cfg, bsk[:NUSS_CPU_STEPS], rings[:NUSS_CPU_STEPS],
+                             lut, cts[:NUSS_CPU_ROWS])
+            del rings, out
+            torch.cuda.empty_cache()
+    return cpu_check
+
+
+def nuss_cpu_check(cfg, bsk, rings, lut, cts):
+    """The first CMux steps of a few rows of the u32 N=8192 engine cell,
+    key preparation included, through the port on the CPU: equal to the
+    card bit for bit."""
+    t0 = time.perf_counter()
+    steps = bsk.shape[0]
+    small = dataclasses.replace(cfg, lwe_dimension=steps)
+    lwe = torch.cat([cts[:, :steps], cts[:, -1:]], dim=1)
+    on_card = bsn.blind_rotate_nuss(small, rings, lut, lwe).cpu()
+    rings_cpu = bsn.bsk_to_nuss(bsk, cfg, device="cpu")
+    on_cpu = bsn.blind_rotate_nuss(small, rings_cpu, lut.cpu(), lwe.cpu())
+    if not (torch.equal(rings_cpu, rings.cpu()) and torch.equal(on_card, on_cpu)):
+        raise AssertionError("CPU recomputation of the nuss cell differs")
+    log(phase="cpu_check", params="engine u32 N=8192 (nuss)", cmux_steps=steps,
+        rows=cts.shape[0], key_prep_equal=True, bit_identical=True,
+        seconds=time.perf_counter() - t0)
+
+
+def phase_d(dev, card):
+    """The Nussbaumer backend; returns the kernel launches of its main path
+    (the CPU cross-check runs after the count is read)."""
+    reset_launch_counts()
+    nuss_gates(dev, card)
+    torch.cuda.empty_cache()
+    nuss_int4(dev, card)
+    torch.cuda.empty_cache()
+    cpu_check = nuss_engine(dev, card)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(phase="D", launches=launches)
+    nuss_cpu_check(*cpu_check)
+    return launches
+
+
 def check_launched(path: str, launches: dict):
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
@@ -514,6 +790,10 @@ def check_launched(path: str, launches: dict):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phases", default="ABCD",
+                        help="phases to run (default all: ABCD)")
+    phases = parser.parse_args().phases
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs one GPU")
     dev = torch.device("cuda")
@@ -521,54 +801,60 @@ def main():
     t_all = time.perf_counter()
 
     t0 = time.perf_counter()
-    _cuda.library()
+    _cuda.load_all()
     build_s = time.perf_counter() - t0
     log(phase="build", seconds=build_s, torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
-    log_path = _cuda.BUILD_DIR / "build.log"
-    if log_path.exists():
-        for line in log_path.read_text().splitlines():
-            if "Used" in line or "spill" in line:
-                print("ptxas:", line.strip(), flush=True)
+    for name in _cuda.SOURCES:
+        log_path = _cuda.build_log(name)
+        if log_path.exists():
+            for line in log_path.read_text().splitlines():
+                if "Used" in line or "spill" in line or "Compiling" in line:
+                    print(f"ptxas ({name}):", line.strip(), flush=True)
 
     t0 = time.perf_counter()
     rows = phase_a(dev, card)
     log(phase="A", seconds=time.perf_counter() - t0)
+    path_launches = {}
 
-    t0 = time.perf_counter()
-    bsx.reset_launch_counts()
-    cpu_check = phase_b(dev, card)
-    path_launches = {"B": bsx.launch_counts()}
-    log(phase="B", seconds=time.perf_counter() - t0,
-        launches=path_launches["B"])
-    check_launched("B", path_launches["B"])
+    if "B" in phases:
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        cpu_check = phase_b(dev, card)
+        path_launches["B"] = launch_counts()
+        log(phase="B", seconds=time.perf_counter() - t0,
+            launches=path_launches["B"])
+        check_launched("B", path_launches["B"])
 
-    t0 = time.perf_counter()
-    sks, ca, cb, want = cpu_check
-    got = sks.to("cpu").and_(ca, cb)
-    if not torch.equal(got, want):
-        raise AssertionError("CPU recomputation differs from the card")
-    log(phase="cpu_check", rows=CPU_ROWS, params="TPU128", gate="and_",
-        bit_identical=True, seconds=time.perf_counter() - t0)
-    del sks, cpu_check
-    torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        sks, ca, cb, want = cpu_check
+        got = sks.to("cpu").and_(ca, cb)
+        if not torch.equal(got, want):
+            raise AssertionError("CPU recomputation differs from the card")
+        log(phase="cpu_check", rows=CPU_ROWS, params="TPU128", gate="and_",
+            bit_identical=True, seconds=time.perf_counter() - t0)
+        del sks, cpu_check
+        torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    path_launches["C"] = phase_c(dev, card)
-    log(phase="C", seconds=time.perf_counter() - t0)
-    check_launched("C", path_launches["C"])
+    for path, run in (("C", phase_c), ("D", phase_d)):
+        if path in phases:
+            t0 = time.perf_counter()
+            path_launches[path] = run(dev, card)
+            log(phase=path, seconds=time.perf_counter() - t0)
+            check_launched(path, path_launches[path])
+            torch.cuda.empty_cache()
     log(phase="all", seconds=time.perf_counter() - t_all)
 
     launches = {k: sum(counts[k] for path, counts in path_launches.items()
                        if k in PATH_KERNELS[path]) for k in REPLACES}
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
+        {"name": k, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[k], "max_abs_err": rows[k]["max_abs_err"],
          "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"],
          "bound_ms": rows[k]["bound_ms"], "bound_by": rows[k]["bound_by"],
          "library_ms": None}
-        for k in REPLACES]}), flush=True)
+        for k, (src, tpu) in REPLACES.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,9 +6,10 @@ Every bootstrapped gate is a linear combination, a PBS with the constant
   OR:   l + r + 1/8        NOR:  -l - r - 1/8
   XOR:  2(l + r) + 1/4     XNOR: 2(-l - r) - 1/4
   NOT:  -l (no bootstrap)  MUX:  pbs(c+t-1/8) + pbs(-c+e-1/8) + 1/8, keyswitch
-The PBS runs through the toeplitz ("mxu") backend, the port's only one so
-far. Gates take np.uint32 arrays or int32 tensors [..., n+1] and return
-int32 tensors on the key's device.
+The PBS runs through the toeplitz ("mxu") backend for N <= 4096 and the
+Nussbaumer ("nuss") backend above (`backend="auto"`), or the one named by
+`backend`; the two are bit-identical. Gates take np.uint32 arrays or int32
+tensors [..., n+1] and return int32 tensors on the key's device.
 
 Example (AND and XOR on tiny insecure parameters, on the CPU):
     >>> from concrete_tpu_torch import boolean
@@ -34,6 +35,7 @@ import torch
 
 from ..core import bootstrap as bs
 from ..core import bootstrap_mxu as bsx
+from ..core import bootstrap_nuss as bsn
 from ..core import lwe as lwe_ops
 from ..core.ggsw import StandardBootstrapKey
 from ..ops import _cuda
@@ -67,14 +69,17 @@ _SAVED_CONFIG = ("lwe_dimension", "glwe_dimension", "polynomial_size",
 class ServerKey:
     """Coefficient-domain bootstrap key + keyswitch key + configuration.
 
-    The evaluation forms (toeplitz rings of the BSK, int8 limb planes of the
-    KSK) are derived from the stored arrays at first use, on `device`."""
+    The evaluation forms (toeplitz or Nussbaumer rings of the BSK, int8 limb
+    planes of the KSK) are derived from the stored arrays at first use, on
+    `device`. `backend` is "mxu", "nuss" or "auto" (resolved_backend)."""
 
     ksk: np.ndarray               # [k*N, l_ks, n+1] np.uint32
     cfg: bs.ServerConfig
     bsk_standard: np.ndarray      # [n, l, k+1, k+1, N] np.uint32
     device: torch.device | str | None = None   # None: the GPU (required)
+    backend: str = "auto"
     _bsk_mxu: torch.Tensor | None = dataclasses.field(default=None, repr=False)
+    _bsk_nuss: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     _ksk8: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     # batch tiers run by warmup(); _pad_size pads smaller requests up to them
     _warmed_tiers: set = dataclasses.field(
@@ -92,23 +97,37 @@ class ServerKey:
                 f"not match the configuration ({bsk_shape} / {ksk_shape})")
 
     def resolved_backend(self) -> str:
-        """"mxu", the port's only backend; raises NotImplementedError for a
-        configuration outside its envelope (N > 4096, ...)."""
-        bsx.MxuPlan.from_config(self.cfg)
-        return "mxu"
+        """The backend the gates run: `backend` when it is "mxu" or "nuss"
+        (checked against the configuration), else "mxu" where its plan
+        accepts the configuration (N <= 4096) and "nuss" where the
+        Nussbaumer plan does (N = 8192, 16384) — the order of concrete_tpu,
+        which picks its NTT backend off the TPU. Raises NotImplementedError
+        where neither does: the NTT backend is not ported yet."""
+        return bsn.resolve_backend(self.cfg, self.backend)
 
     @property
     def bsk_mxu(self) -> torch.Tensor:
         """Toeplitz rotation rings [n, R, k+1, 2N] int32 on the device."""
         if self._bsk_mxu is None:
-            self.resolved_backend()
+            bsx.MxuPlan.from_config(self.cfg)
             self._bsk_mxu = from_numpy(
                 bsx.bsk_to_mxu(self.bsk_standard, self.cfg), self.device)
         return self._bsk_mxu
 
     @property
+    def bsk_nuss(self) -> torch.Tensor:
+        """Nussbaumer-domain rings [n, 2L*R', 2(k+1), 2M] int32, converted
+        on the device (bsk_to_nuss)."""
+        if self._bsk_nuss is None:
+            self._bsk_nuss = bsn.bsk_to_nuss(self.bsk_standard, self.cfg,
+                                             device=self.device)
+        return self._bsk_nuss
+
+    @property
     def ksk8(self) -> torch.Tensor:
-        """int8 limb-prepared keyswitch key [k*N*l_ks, 4*(n+1)] (lwe.ksk_to_limbs)."""
+        """int8 limb-prepared keyswitch key [k*N*l_ks, 4*(n+1)]
+        (lwe.ksk_to_limbs), on both backends, as concrete_tpu's
+        _keyswitch_key takes it on mxu and nuss."""
         if self._ksk8 is None:
             if not (self.cfg.ks_base_log <= 7
                     and self.ksk.shape[0] * self.ksk.shape[1] * 8192 < 2 ** 31):
@@ -128,10 +147,11 @@ class ServerKey:
         Masks and noise come from numpy Generators seeded with `mask_seed`
         and `noise_seed` (not the JAX package's AES-CTR streams)."""
         p = cks.parameters
+        device = _cuda.resolve_device(device)
         rand = EncryptionRandom.new(mask_seed, noise_seed)
         bsk = StandardBootstrapKey.generate(
             cks.lwe_secret_key, cks.glwe_secret_key, p.pbs_base_log,
-            p.pbs_level, p.glwe_modular_std_dev.std_dev, rand)
+            p.pbs_level, p.glwe_modular_std_dev.std_dev, rand, device=device)
         ksk = lwe_ops.LweKeyswitchKey.generate(
             cks.glwe_secret_key.into_lwe_key(), cks.lwe_secret_key,
             p.ks_base_log, p.ks_level, p.lwe_modular_std_dev.std_dev, rand)
@@ -147,19 +167,23 @@ class ServerKey:
                    device=device)
 
     def save(self, path: str):
-        """Serialize in the npz format of concrete_tpu's ServerKey.save."""
+        """Serialize in the npz format of concrete_tpu's ServerKey.save,
+        plus the backend choice (an entry concrete_tpu's load ignores)."""
         np.savez_compressed(
-            path, bsk=self.bsk_standard, ksk=self.ksk,
+            path, bsk=self.bsk_standard, ksk=self.ksk, backend=self.backend,
             **{name: getattr(self.cfg, name) for name in _SAVED_CONFIG})
 
     @classmethod
     def load(cls, path: str, *, device=None) -> "ServerKey":
-        """Read a key written by `save` or by concrete_tpu's ServerKey.save."""
+        """Read a key written by `save` or by concrete_tpu's ServerKey.save
+        (which stores no backend: "auto")."""
         with np.load(path, allow_pickle=False) as d:
             cfg = bs.ServerConfig(**{name: int(d[name])
                                      for name in _SAVED_CONFIG})
+            backend = str(d["backend"]) if "backend" in d.files else "auto"
             return cls(ksk=d["ksk"].astype(np.uint32), cfg=cfg,
-                       bsk_standard=d["bsk"].astype(np.uint32), device=device)
+                       bsk_standard=d["bsk"].astype(np.uint32), device=device,
+                       backend=backend)
 
     def to(self, device) -> "ServerKey":
         """The same key on another device (evaluation forms moved, not
@@ -167,7 +191,8 @@ class ServerKey:
         move = (lambda t: None if t is None else t.to(device))
         return dataclasses.replace(
             self, device=torch.device(device), _bsk_mxu=move(self._bsk_mxu),
-            _ksk8=move(self._ksk8), _warmed_tiers=set())
+            _bsk_nuss=move(self._bsk_nuss), _ksk8=move(self._ksk8),
+            _warmed_tiers=set())
 
     def with_fast_mode(self, *, limb_drop: int = 0,
                        levels: int | None = 2) -> "ServerKey":
@@ -176,12 +201,12 @@ class ServerKey:
         most significant PBS decomposition levels (the bootstrap key is
         sliced), ``limb_drop`` rounds the bootstrap-key operand of the
         toeplitz product (which the JAX package advises against on the u32
-        torus). The keyswitch key, client keys and ciphertexts are
-        unchanged."""
+        torus; the nuss backend ignores it). The keyswitch key, client keys
+        and ciphertexts are unchanged."""
         cfg = self.cfg.with_fast_mode(limb_drop=limb_drop, levels=levels)
         return dataclasses.replace(
             self, cfg=cfg, bsk_standard=self.bsk_standard[:, :cfg.pbs_level],
-            _bsk_mxu=None, _warmed_tiers=set())
+            _bsk_mxu=None, _bsk_nuss=None, _warmed_tiers=set())
 
     # -- batching ------------------------------------------------------------
 
@@ -218,7 +243,7 @@ class ServerKey:
         every request up to the smallest warmed tier that fits. Returns
         {tier: seconds}."""
         if self.device.type == "cuda":
-            _cuda.library()
+            _cuda.load_all()
         timings = {}
         for bsz in batch_sizes:
             tier = 1 << (int(bsz) - 1).bit_length() if bsz > 1 else 1
@@ -243,6 +268,9 @@ class ServerKey:
         def run(a, b):
             lin = lin_fn(a, b)
             lin[:, -1] += offset
+            if self.resolved_backend() == "nuss":
+                return bsn.bootstrap_keyswitch_nuss(
+                    self.cfg, self.bsk_nuss, self.ksk8, self._lut(), lin)
             return bsx.bootstrap_keyswitch_mxu(
                 self.cfg, self.bsk_mxu, self.ksk8, self._lut(), lin)
 
@@ -279,8 +307,13 @@ class ServerKey:
             lin1[:, -1] += _NEG_EIGHTH
             lin2 = e - c
             lin2[:, -1] += _NEG_EIGHTH
-            pbs = bsx.bootstrap_mxu(self.cfg, self.bsk_mxu, self._lut(),
-                                    torch.stack([lin1, lin2]))
+            both = torch.stack([lin1, lin2])
+            if self.resolved_backend() == "nuss":
+                pbs = bsn.bootstrap_nuss(self.cfg, self.bsk_nuss, self._lut(),
+                                         both)
+            else:
+                pbs = bsx.bootstrap_mxu(self.cfg, self.bsk_mxu, self._lut(),
+                                        both)
             summed = pbs[0] + pbs[1]
             summed[:, -1] += _EIGHTH
             return lwe_ops.keyswitch_limbs(
@@ -288,3 +321,4 @@ class ServerKey:
                 level_count=self.cfg.ks_level)
 
         return self._padded_call(run, ct_condition, ct_then, ct_else)
+

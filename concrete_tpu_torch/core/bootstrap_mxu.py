@@ -182,11 +182,13 @@ def bsk_to_mxu(bsk_data, cfg: ServerConfig) -> np.ndarray:
     return rings.reshape(n, plan.row_blocks, ks1 * plan.n_words, 2 * N)
 
 
-def _kept_limbs(n_words: int, limb_drop: int) -> list[tuple[int, int]]:
-    """Kept (word, byte) pairs in ascending global-limb order 4*word + byte
-    (limb_drop removes low limbs)."""
+def _kept_limbs(n_words: int, limb_drop: int,
+                limb_hi_drop: int = 0) -> list[tuple[int, int]]:
+    """Kept (word, byte) pairs in ascending global-limb order 4*word + byte:
+    limb_drop removes low limbs (fast mode), limb_hi_drop high ones (the
+    Nussbaumer tables, whose values fill only bits + log2(2L) bits)."""
     return [(w, m) for w in range(n_words) for m in range(4)
-            if 4 * w + m >= limb_drop]
+            if limb_drop <= 4 * w + m < 4 * n_words - limb_hi_drop]
 
 
 # ---------------------------------------------------------------------------
@@ -310,9 +312,9 @@ def _check_kernel_operands(n: int, *tensors):
 
 
 def build_tables_plain(rings: torch.Tensor, n: int, limb_drop: int = 0,
-                       n_words: int = 1):
+                       n_words: int = 1, limb_hi_drop: int = 0):
     """rings [R, (k+1)*n_words, 2N] int32 word planes -> RHS
-    [R*N, (k+1)*L*N] int8, L = 4*n_words - limb_drop: entry
+    [R*N, (k+1)*L*N] int8, L = 4*n_words - limb_drop - limb_hi_drop: entry
     (blk*N + r, (kj*L + li)*N + c) is global byte limb_drop+li (byte g & 3 of
     word plane kj*n_words + g//4) of ring[blk, kj][(c - r) mod 2N], the
     negacyclic toeplitz matrix.
@@ -323,7 +325,7 @@ def build_tables_plain(rings: torch.Tensor, n: int, limb_drop: int = 0,
     r_blocks = rings.shape[0]
     ks1 = rings.shape[1] // n_words
     words = rings.reshape(r_blocks, ks1, n_words, 2 * n)
-    kept = _kept_limbs(n_words, limb_drop)
+    kept = _kept_limbs(n_words, limb_drop, limb_hi_drop)
     limbs = torch.stack([(words[:, :, w] << (24 - 8 * m)) >> 24
                          for w, m in kept], dim=2).to(torch.int8)  # [R, k+1, L, 2N]
     ext = torch.roll(limbs, n, dims=-1).contiguous()
@@ -335,22 +337,25 @@ def build_tables_plain(rings: torch.Tensor, n: int, limb_drop: int = 0,
 
 
 def build_tables(rings: torch.Tensor, n: int, limb_drop: int = 0,
-                 n_words: int = 1, *,
+                 n_words: int = 1, limb_hi_drop: int = 0, *,
                  out: torch.Tensor | None = None) -> torch.Tensor:
     """K1, the toeplitz RHS of one CMux step (build_tables_plain), from u32
-    (n_words=1) or u64 (n_words=2) rings. `out`, when given, is written in
-    place: the blind rotation allocates it once and reuses it every step."""
+    (n_words=1) or u64 (n_words=2) rings, or from the Nussbaumer rings
+    (n_words=2 on the u32 torus, 3 on the u64 torus, with limb_hi_drop high
+    limbs dropped; n is then M). `out`, when given, is written in place:
+    the blind rotation allocates it once and reuses it every step."""
     r_blocks, planes = rings.shape[:2]
     ks1 = planes // n_words
-    nk = 4 * n_words - limb_drop
-    if n_words not in (1, 2) or not 0 <= limb_drop < 4 * n_words:
-        raise ValueError(f"n_words={n_words}, limb_drop={limb_drop}")
+    nk = 4 * n_words - limb_drop - limb_hi_drop
+    if n_words not in (1, 2, 3) or min(limb_drop, limb_hi_drop) < 0 or nk < 1:
+        raise ValueError(f"n_words={n_words}, limb_drop={limb_drop}, "
+                         f"limb_hi_drop={limb_hi_drop}")
     shape = (r_blocks * n, ks1 * nk * n)
     _check(rings, "rings", torch.int32, (r_blocks, ks1 * n_words, 2 * n))
     if out is not None:
         _check(out, "out", torch.int8, shape)
     if _on_cpu(rings, out):
-        res = build_tables_plain(rings, n, limb_drop, n_words)
+        res = build_tables_plain(rings, n, limb_drop, n_words, limb_hi_drop)
         return res if out is None else out.copy_(res)
     if out is None:
         out = torch.empty(shape, dtype=torch.int8, device=rings.device)

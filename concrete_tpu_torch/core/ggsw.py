@@ -35,12 +35,12 @@ from .glwe import GlweSecretKey
 
 def assemble_ggsw(glwe_key: GlweSecretKey, base_log: int, level_count: int,
                   masks: np.ndarray, noises: np.ndarray,
-                  values: np.ndarray) -> np.ndarray:
+                  values: np.ndarray, device=None) -> np.ndarray:
     """GGSW rows from randomness: masks [n, l, k+1, k, N], noises
     [n, l, k+1, N], values [n] -> [n, l, k+1, k+1, N], encryptions of zero
-    plus the gadget constants on the diagonals."""
+    plus the gadget constants on the diagonals (products on `device`)."""
     rows = glwe_key.encrypt_from_randomness(
-        masks, noises, np.zeros(noises.shape, dtype=noises.dtype))
+        masks, noises, np.zeros(noises.shape, dtype=noises.dtype), device)
     _add_gadget_diagonals(rows, values, base_log, level_count, glwe_key.bits)
     return rows
 
@@ -68,15 +68,17 @@ class StandardBootstrapKey:
 
     @classmethod
     def generate(cls, lwe_key, glwe_key: GlweSecretKey, base_log: int,
-                 level_count: int, std: float,
-                 rand: EncryptionRandom) -> "StandardBootstrapKey":
+                 level_count: int, std: float, rand: EncryptionRandom,
+                 device=None) -> "StandardBootstrapKey":
         """One GGSW encryption of each LWE key bit under the GLWE key, with
-        uniform masks and Gaussian noise of std `std` from `rand`."""
+        uniform masks and Gaussian noise of std `std` from `rand`; the
+        mask-times-key products run on `device` (the CPU by default), with
+        the same bytes on every device."""
         k, n = glwe_key.dimension, glwe_key.polynomial_size
         n_lwe = lwe_key.dimension
         bits = glwe_key.bits
         masks = rand.fill_mask((n_lwe, level_count, k + 1, k, n), bits)
         noises = rand.fill_noise((n_lwe, level_count, k + 1, n), std, bits)
         data = assemble_ggsw(glwe_key, base_log, level_count, masks, noises,
-                             lwe_key.key)
+                             lwe_key.key, device)
         return cls(data=data, base_log=base_log, level_count=level_count)

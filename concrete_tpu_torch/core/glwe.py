@@ -3,7 +3,7 @@
 A GLWE ciphertext is [k+1, N] with the body polynomial last. Keys and
 ciphertexts are np.uint32 (u32 torus) or np.uint64 (u64 torus); the
 mask-times-key products run through ``math.polynomial.negacyclic_multisum``
-(exact, float64).
+(exact, float64), on a device of the caller's choice (the card at large N).
 
 Example:
     >>> import numpy as np
@@ -56,11 +56,13 @@ class GlweSecretKey:
         return LweSecretKey(self.key.reshape(-1).copy(), self.bits)
 
     def encrypt_from_randomness(self, masks: np.ndarray, noises: np.ndarray,
-                                msgs: np.ndarray) -> np.ndarray:
+                                msgs: np.ndarray, device=None) -> np.ndarray:
         """Ciphertexts from pre-drawn randomness: masks [..., k, N], noises
         and msgs [..., N] -> [..., k+1, N] with body = noise + sum_j a_j*s_j
-        + msg (secret/glwe.rs:488-516)."""
+        + msg (secret/glwe.rs:488-516). The products run on `device` (the
+        CPU by default); the float64 sums are exact, so every device gives
+        the same bytes."""
         products = polynomial.negacyclic_multisum(
-            from_numpy(masks), from_numpy(self.key))
+            from_numpy(masks, device), from_numpy(self.key, device))
         bodies = noises + to_numpy(products) + msgs
         return np.concatenate([masks, bodies[..., None, :]], axis=-2)

@@ -199,7 +199,8 @@ __global__ void rotdig_recombine_kernel(const int32_t* __restrict__ s,
 // K1 build_tables. Replaces
 // concrete_tpu/core/bootstrap_mxu.py:_build_tables_pallas.
 // rings [R, (k+1)*n_words, 2N] u32 word planes (n_words = 1 for the u32
-// torus, 2 for u64) -> rhs [R*N, (k+1)*n_kept*N] i8: entry
+// torus, 2 for u64; 2 or 3 for the Nussbaumer rings, whose high limbs the
+// caller drops through n_kept) -> rhs [R*N, (k+1)*n_kept*N] i8: entry
 // (blk*N + r, (kj*n_kept + li)*N + c) = global byte g = limb_drop + li, i.e.
 // byte g % 4 of word plane kj*n_words + g / 4, of ring[blk, kj][(c - r) mod
 // 2N]. One block per output row; each thread makes 4 consecutive output

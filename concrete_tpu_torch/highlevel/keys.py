@@ -4,10 +4,11 @@ u64 torus.
 
 Secret keys live on the host as np.uint64. The bootstrapping and
 keyswitching keys keep their coefficient-domain arrays on the host and
-derive their evaluation forms (toeplitz rings, int8 limb planes) on
-`device` at first use: the GPU unless the caller asks for the CPU. Key
-generation draws from numpy Generators, not from the JAX package's AES-CTR
-streams; keys saved by concrete_tpu load here unchanged (`load`).
+derive their evaluation forms (toeplitz or Nussbaumer rings, int8 limb
+planes) on `device` at first use: the GPU unless the caller asks for the
+CPU. Key generation draws from numpy Generators, not from the JAX package's
+AES-CTR streams (its products run on `device`); keys saved by concrete_tpu
+load here unchanged (`load`).
 
 Example (a tiny PBS + keyswitch on the CPU):
     >>> import numpy as np
@@ -33,6 +34,7 @@ import torch
 from .. import npe
 from ..core import bootstrap as bs
 from ..core import bootstrap_mxu as bsx
+from ..core import bootstrap_nuss as bsn
 from ..core import lwe as lwe_ops
 from ..core.ggsw import StandardBootstrapKey
 from ..core.glwe import GlweSecretKey
@@ -120,41 +122,45 @@ class RLWESecretKey:
 @dataclasses.dataclass
 class LWEBSK:
     """Bootstrapping key (lwe_bsk.rs:20): GGSW encryptions of the input key
-    bits under the RLWE key, [n, l, k+1, k+1, N] np.uint64. The toeplitz
-    rings of the mxu backend are built on `device` at first use."""
+    bits under the RLWE key, [n, l, k+1, k+1, N] np.uint64. The rings of the
+    mxu (N <= 4096) or nuss (N = 8192, 16384) backend are built on `device`
+    at first use."""
 
     cfg: bs.ServerConfig
     variance: float
     coefficient_bsk: np.ndarray
     device: torch.device | str | None = None   # None: the GPU (required)
+    backend: str = "auto"
     _bsk_mxu: torch.Tensor | None = dataclasses.field(default=None, repr=False)
+    _bsk_nuss: torch.Tensor | None = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
     def resolved_backend(self) -> str:
-        """"mxu", the port's only backend; raises NotImplementedError for a
-        configuration outside its envelope (N > 4096, ...): the Nussbaumer
-        and NTT backends are not ported yet."""
-        bsx.MxuPlan.from_config(self.cfg)
-        return "mxu"
+        """"mxu" or "nuss" (bootstrap_nuss.resolve_backend): `backend` when
+        named, else "mxu" up to N = 4096 and "nuss" above; raises
+        NotImplementedError where neither takes the configuration (the NTT
+        backend is not ported yet)."""
+        return bsn.resolve_backend(self.cfg, self.backend)
 
     def with_fast_mode(self, *, limb_drop: int = 2,
                        levels: int | None = None) -> "LWEBSK":
         """Reduced-precision evaluation twin over the same key material
         (concrete_tpu's LWEBSK.with_fast_mode): ``limb_drop`` of the 8
-        bootstrap-key byte limbs are dropped, ``levels`` keeps only the most
-        significant PBS decomposition levels. The extra noise is tracked by
-        bootstrap_output_variance. Ciphertexts and client keys are
-        unchanged."""
+        bootstrap-key byte limbs are dropped on the mxu backend (the nuss
+        backend is exact and ignores it, as in concrete_tpu), ``levels``
+        keeps only the most significant PBS decomposition levels. The extra
+        noise is tracked by bootstrap_output_variance. Ciphertexts and
+        client keys are unchanged."""
         cfg = self.cfg.with_fast_mode(limb_drop=limb_drop, levels=levels)
         return dataclasses.replace(
             self, cfg=cfg, coefficient_bsk=self.coefficient_bsk[:, :cfg.pbs_level],
-            _bsk_mxu=None)
+            _bsk_mxu=None, _bsk_nuss=None)
 
     def bootstrap_output_variance(self, lwe_dimension: int) -> float:
         """PBS output variance, with the reduced-precision term in fast
-        mode."""
+        mode on the mxu backend."""
         var = npe.estimate_pbs_noise(
             lwe_dimension, self.polynomial_size, self.dimension,
             self.base_log, self.level, Variance(self.variance), BITS,
@@ -171,39 +177,58 @@ class LWEBSK:
     def bsk_mxu(self) -> torch.Tensor:
         """Toeplitz rotation rings [n, R, 2(k+1), 2N] int32 on the device."""
         if self._bsk_mxu is None:
-            self.resolved_backend()
+            bsx.MxuPlan.from_config(self.cfg)
             self._bsk_mxu = from_numpy(
                 bsx.bsk_to_mxu(self.coefficient_bsk, self.cfg), self.device)
         return self._bsk_mxu
 
+    @property
+    def bsk_nuss(self) -> torch.Tensor:
+        """Nussbaumer-domain rings [n, 2L*R', 3(k+1), 2M] int32, converted
+        on the device (bsk_to_nuss)."""
+        if self._bsk_nuss is None:
+            self._bsk_nuss = bsn.bsk_to_nuss(self.coefficient_bsk, self.cfg,
+                                             device=self.device)
+        return self._bsk_nuss
+
     def run_bootstrap(self, accumulator, cts) -> torch.Tensor:
         """PBS of `cts` [..., n+1] against `accumulator` [k+1, N] (u64 numpy
         or int64 tensors) -> [..., k*N+1] int64 on the device."""
-        return bsx.bootstrap_mxu(
-            self.cfg, self.bsk_mxu, as_torus(accumulator, self.device, BITS),
-            as_torus(cts, self.device, BITS))
+        acc = as_torus(accumulator, self.device, BITS)
+        cts = as_torus(cts, self.device, BITS)
+        if self.resolved_backend() == "nuss":
+            return bsn.bootstrap_nuss(self.cfg, self.bsk_nuss, acc, cts)
+        return bsx.bootstrap_mxu(self.cfg, self.bsk_mxu, acc, cts)
 
     def run_bootstrap_many(self, accumulator, cts,
                            lut_count_log: int) -> torch.Tensor:
         """Multi-LUT PBS: one blind rotation, 2^lcl packed functions ->
         [2^lcl, ..., k*N+1] int64 on the device."""
-        return bsx.bootstrap_many_lut_mxu(
-            self.cfg, self.bsk_mxu, as_torus(accumulator, self.device, BITS),
-            as_torus(cts, self.device, BITS), lut_count_log)
+        acc = as_torus(accumulator, self.device, BITS)
+        cts = as_torus(cts, self.device, BITS)
+        if self.resolved_backend() == "nuss":
+            return bsn.bootstrap_many_lut_nuss(self.cfg, self.bsk_nuss, acc,
+                                               cts, lut_count_log)
+        return bsx.bootstrap_many_lut_mxu(self.cfg, self.bsk_mxu, acc, cts,
+                                          lut_count_log)
 
     @classmethod
     def new(cls, sk_input: LWESecretKey, sk_output: RLWESecretKey,
             base_log: int, level: int, *, mask_seed: int | None = None,
-            noise_seed: int | None = None, device=None) -> "LWEBSK":
+            noise_seed: int | None = None, device=None,
+            backend: str = "auto") -> "LWEBSK":
         """GGSW-encrypt `sk_input`'s bits under `sk_output`, with masks and
-        noise from numpy Generators seeded with `mask_seed`/`noise_seed`."""
+        noise from numpy Generators seeded with `mask_seed`/`noise_seed`;
+        the mask-times-key products run on `device`."""
         cfg = cls._config(sk_input.dimension, sk_output.dimension,
                           sk_output.polynomial_size, base_log, level)
+        device = resolve_device(device)
         std_bsk = StandardBootstrapKey.generate(
             sk_input.inner, sk_output.inner, base_log, level,
-            sk_output.std_dev, EncryptionRandom.new(mask_seed, noise_seed))
+            sk_output.std_dev, EncryptionRandom.new(mask_seed, noise_seed),
+            device=device)
         return cls(cfg=cfg, variance=sk_output.variance,
-                   coefficient_bsk=std_bsk.data, device=device)
+                   coefficient_bsk=std_bsk.data, device=device, backend=backend)
 
     @staticmethod
     def _config(n: int, k: int, poly: int, base_log: int,
@@ -243,14 +268,14 @@ class LWEBSK:
             base_log=self.cfg.pbs_base_log, level=self.cfg.pbs_level)
 
     @classmethod
-    def load(cls, path: str, *, device=None) -> "LWEBSK":
+    def load(cls, path: str, *, device=None, backend: str = "auto") -> "LWEBSK":
         with np.load(path, allow_pickle=False) as d:
             data = d["bsk"].astype(DTYPE)
             _, _, glwe_size, _, poly = data.shape
             cfg = cls._config(int(d["lwe_dimension"]), glwe_size - 1, poly,
                               int(d["base_log"]), int(d["level"]))
             return cls(cfg=cfg, variance=float(d["variance"]),
-                       coefficient_bsk=data, device=device)
+                       coefficient_bsk=data, device=device, backend=backend)
 
 
 @dataclasses.dataclass

@@ -1,16 +1,18 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-``csrc/mxu_kernels.cu`` is compiled by ``nvcc`` for Hopper (sm_90a) into a
-shared library with a plain C interface, loaded with ctypes. The build runs
-at first use, in ``concrete_tpu_torch/_build/``, and again whenever the
-source or the flags change (the library's file name carries their hash).
-Nothing here runs at import time: importing the port needs no CUDA.
+Each source under ``csrc/`` (``mxu_kernels.cu``: K1-K4; ``nuss_kernels.cu``:
+K5-K7) is compiled by ``nvcc`` for Hopper (sm_90a) into its own shared
+library with a plain C interface, loaded with ctypes. The builds run at
+first use, all sources at once (one ``nvcc`` each, in parallel), in
+``concrete_tpu_torch/_build/``, and again whenever a source or the flags
+change (a library's file name carries their hash). Nothing here runs at
+import time: importing the port needs no CUDA.
 
 Each C entry point launches one kernel on the stream it is given and
-returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
+returns a CUDA error code; :func:`launch` raises when that is not 0.
 
-    >>> SOURCE.relative_to(_PKG).as_posix(), sorted(_SIGNATURES)
-    ('csrc/mxu_kernels.cu', ['ctt_build_tables', 'ctt_rotdig', 'ctt_rotdig64', 'ctt_rotdig_recombine'])
+    >>> sorted(SOURCES), len(_SIGNATURES)
+    (['mxu_kernels', 'nuss_kernels'], 8)
 """
 
 from __future__ import annotations
@@ -25,17 +27,23 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "mxu_kernels.cu"
+SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
+           for name in ("mxu_kernels", "nuss_kernels")}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# entry point -> (pointer arguments, int arguments); the stream comes last
+# entry point -> (library, pointer arguments, int arguments); the stream
+# comes last
 _SIGNATURES = {
-    "ctt_build_tables": (2, 6),
-    "ctt_rotdig": (3, 6),
-    "ctt_rotdig64": (3, 6),
-    "ctt_rotdig_recombine": (5, 8),
+    "ctt_build_tables": ("mxu_kernels", 2, 6),
+    "ctt_rotdig": ("mxu_kernels", 3, 6),
+    "ctt_rotdig64": ("mxu_kernels", 3, 6),
+    "ctt_rotdig_recombine": ("mxu_kernels", 5, 8),
+    "ctt_recombine_inv": ("nuss_kernels", 2, 6),
+    "ctt_recombine_inv64": ("nuss_kernels", 2, 6),
+    "ctt_rotdig_fwd_nuss": ("nuss_kernels", 3, 7),
+    "ctt_rotdig_fwd_nuss64": ("nuss_kernels", 3, 7),
 }
 
 
@@ -63,43 +71,77 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The kernel library, built first if this source has no build yet."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"mxu_kernels_{digest}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True, check=False)
-        (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}_{digest}.so"
+
+
+def build_log(name: str) -> Path:
+    """nvcc's output for one source (ptxas's register report)."""
+    return BUILD_DIR / f"{name}.build.log"
+
+
+def build_all():
+    """Compile every source that has no library yet, one nvcc each, all
+    started together; raise if any fails."""
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = _lib_path(name).with_name(f"{_lib_path(name).name}."
+                                        f"{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        output, _ = proc.communicate()
+        build_log(name).write_text(output)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    for name, (n_ptr, n_int) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+            failed.append(f"nvcc failed ({proc.returncode}) on "
+                          f"{SOURCES[name]}:\n{output}")
+        else:
+            os.replace(tmp, _lib_path(name))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The kernel library built from csrc/<name>.cu (built first if needed)."""
+    if not _lib_path(name).exists():
+        build_all()
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    for entry, (lib_name, n_ptr, n_int) in _SIGNATURES.items():
+        if lib_name == name:
+            fn = getattr(lib, entry)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     lib.ctt_error_string.argtypes = [ctypes.c_int]
     lib.ctt_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def load_all():
+    """Build (in parallel) and load every kernel library."""
+    build_all()
+    for name in SOURCES:
+        library(name)
+
+
 def launch(name: str, *args):
     """Launch entry point `name` on the current stream of the first tensor's
     device: tensors pass as device pointers, the rest as C ints."""
-    n_ptr, n_int = _SIGNATURES[name]
+    lib_name, n_ptr, n_int = _SIGNATURES[name]
     tensors, ints = args[:n_ptr], args[n_ptr:]
     if len(ints) != n_int or not all(isinstance(t, torch.Tensor)
                                      for t in tensors):
         raise TypeError(f"{name}: expected {n_ptr} tensors and {n_int} ints")
-    lib = library()
+    lib = library(lib_name)
     device = tensors[0].device
     if device.index != torch.cuda.current_device():
         with torch.cuda.device(device):

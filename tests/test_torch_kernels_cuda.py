@@ -7,6 +7,7 @@ machine (where JAX, which tests/conftest.py imports, may be absent):
 Every comparison is exact (integer arithmetic mod 2^32 and 2^64, tolerance
 0)."""
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 from concrete_tpu_torch import boolean, torus
 from concrete_tpu_torch.core import bootstrap as bs
 from concrete_tpu_torch.core import bootstrap_mxu as bsx
+from concrete_tpu_torch.core import bootstrap_nuss as bsn
 from concrete_tpu_torch.dispersion import StandardDev
 from concrete_tpu_torch.math import polynomial
 from concrete_tpu_torch.ops import _cuda
@@ -32,7 +34,7 @@ def dev():
 
     if CUDA_HOME is None or not (Path(CUDA_HOME) / "bin" / "nvcc").exists():
         pytest.skip("needs nvcc")
-    _cuda.library()
+    _cuda.load_all()
     return torch.device("cuda")
 
 
@@ -214,3 +216,127 @@ def test_u64_blind_rotation_on_gpu_matches_cpu(dev, bl, l, drop):
     got = bsx.bootstrap_mxu(cfg, rings.to(dev), lut.to(dev), lwe.to(dev))
     assert bsx.rotdig64.launches == before + 10
     assert torch.equal(got.cpu(), want)
+
+
+# -- the Nussbaumer backend: K5, K6, K7 and K1 on its rings ---------------------
+
+
+def _nuss_plan(ks1, n, l, bl=7, lv=2, bits=32):
+    cfg = bs.ServerConfig(lwe_dimension=4, glwe_dimension=ks1 - 1,
+                          polynomial_size=n, pbs_base_log=bl, pbs_level=lv,
+                          ks_base_log=2, ks_level=3, bits=bits)
+    return bsn.NussPlan.from_config(cfg, l)
+
+
+def _dot_output(rng, plan, b, dev):
+    s = rng.integers(-(1 << 31), 1 << 31, size=(
+        plan.two_l, b, plan.glwe_size * plan.limbs_used * plan.m))
+    s[0, 0, :] = 2 ** 31 - 1                    # int32 extremes
+    s[-1, -1, :] = -(2 ** 31)
+    return torch.from_numpy(s.astype(np.int32)).to(dev)
+
+
+# (k+1, N, L, B): 2L = 4 and 64, M = 32 and 512, the N = 8192 / 16384
+# engine chunkings, and more than one class group in shared memory
+NUSS_SHAPES = [(2, 64, 2, 5), (3, 256, 4, 3), (2, 1024, 32, 4),
+               (2, 8192, 32, 3), (2, 16384, 32, 2), (1, 4096, 32, 3)]
+
+
+@pytest.mark.parametrize("ks1,n,l,b", NUSS_SHAPES)
+@pytest.mark.parametrize("bits", [32, 64])
+def test_recombine_inv_kernels(dev, ks1, n, l, b, bits):
+    plan = _nuss_plan(ks1, n, l, bits=bits)
+    s = _dot_output(np.random.default_rng(n + l + bits), plan, b, dev)
+    kernel, plain = ((bsn.recombine_inv, bsn.recombine_inv_plain) if bits == 32
+                     else (bsn.recombine_inv64, bsn.recombine_inv64_plain))
+    before = kernel.launches
+    got = kernel(plan, s)
+    assert kernel.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(plan, s))
+
+
+@pytest.mark.parametrize("ks1,n,l,bl,lv,b", [
+    (2, 64, 2, 7, 2, 5), (3, 256, 4, 5, 3, 4), (2, 1024, 32, 7, 3, 3),
+    (2, 8192, 32, 2, 3, 3), (2, 8192, 32, 7, 3, 2), (2, 16384, 32, 2, 3, 2),
+    (2, 512, 16, 16, 2, 3)])
+@pytest.mark.parametrize("bits", [32, 64])
+def test_rotdig_fwd_nuss_kernel(dev, ks1, n, l, bl, lv, b, bits):
+    """K7 on both tori: n_sub 1, 2 (bl 7 at L=32) and 3 (bl 16 at L=16),
+    degrees 0, N, 2N-1 and 2N, u64 rows seeded with word-boundary values."""
+    plan = _nuss_plan(ks1, n, l, bl, lv, bits)
+    rng = np.random.default_rng(n + bl + bits)
+    shape = (ks1, b, l, n // l)
+    acc = (_u32(rng, shape, dev) if bits == 32
+           else _u64(rng, (ks1, b, n), dev).view(shape))
+    a_hat = _degrees(rng, n, b, dev)
+    before = bsn.rotdig_fwd_nuss.launches
+    got = bsn.rotdig_fwd_nuss(plan, acc, a_hat)
+    assert bsn.rotdig_fwd_nuss.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, bsn.rotdig_fwd_nuss_plain(plan, acc, a_hat))
+
+
+@pytest.mark.parametrize("n_words,hi_drop,ks1,m", [(2, 3, 2, 256), (3, 3, 2, 256),
+                                                   (3, 3, 2, 512), (2, 3, 3, 32)])
+def test_build_tables_nuss_rings(dev, n_words, hi_drop, ks1, m):
+    """K1 on the Nussbaumer rings: 2 or 3 word planes, high limbs dropped."""
+    rings = _u32(np.random.default_rng(m + n_words), (12, ks1 * n_words, 2 * m),
+                 dev)
+    before = bsx.build_tables.launches
+    got = bsx.build_tables(rings, m, 0, n_words, hi_drop)
+    assert bsx.build_tables.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, bsx.build_tables_plain(rings, m, 0, n_words, hi_drop))
+
+
+@pytest.mark.parametrize("bits,n,l,bl,lv", [(32, 256, 8, 7, 2), (64, 256, 8, 10, 2),
+                                            (32, 1024, 32, 2, 3)])
+def test_nuss_blind_rotation_on_gpu_matches_cpu(dev, bits, n, l, bl, lv):
+    cfg = bs.ServerConfig(lwe_dimension=6, glwe_dimension=1, polynomial_size=n,
+                          pbs_base_log=bl, pbs_level=lv, ks_base_log=2,
+                          ks_level=5, bits=bits)
+    rng = np.random.default_rng(bits + n)
+    dt = np.uint32 if bits == 32 else np.uint64
+    bsk = rng.integers(0, np.iinfo(dt).max, size=(6, lv, 2, 2, n), dtype=dt,
+                       endpoint=True)
+    rings = bsn.bsk_to_nuss(bsk, cfg, l)
+    assert torch.equal(bsn.bsk_to_nuss(bsk, cfg, l, device=dev).cpu(), rings)
+    lut = torus.from_numpy(rng.integers(0, np.iinfo(dt).max, size=(2, n),
+                                        dtype=dt, endpoint=True))
+    lwe = torus.from_numpy(rng.integers(0, np.iinfo(dt).max, size=(40, 7),
+                                        dtype=dt, endpoint=True))
+    want = bsn.blind_rotate_nuss(cfg, rings, lut, lwe, l=l)
+    bsn.reset_launch_counts()
+    got = bsn.blind_rotate_nuss(cfg, rings.to(dev), lut.to(dev), lwe.to(dev), l=l)
+    counts = bsn.launch_counts()
+    assert counts["rotdig_fwd_nuss"] == 6
+    assert counts["recombine_inv" if bits == 32 else "recombine_inv64"] == 6
+    assert torch.equal(got.cpu(), want)
+
+
+def test_nuss_beyond_the_kernel_envelope_runs_the_plain_composition(dev):
+    """An explicit L with 2L > KERNEL_TWO_L_MAX takes the plain composition
+    on the card, as the JAX package takes its XLA form there."""
+    plan = _nuss_plan(2, 16384, 64, bl=2, lv=1)
+    assert plan.two_l > bsn.KERNEL_TWO_L_MAX
+    s = _dot_output(np.random.default_rng(1), plan, 2, dev)
+    bsn.reset_launch_counts()
+    got = bsn.recombine_inv(plan, s)
+    assert bsn.launch_counts()["recombine_inv"] == 0
+    assert torch.equal(got.cpu(), bsn.recombine_inv_plain(plan, s.cpu()))
+
+
+def test_nuss_gates_on_gpu_match_cpu(dev):
+    tiny = BooleanParameters(16, 1, 256, StandardDev(2.0 ** -25),
+                             StandardDev(2.0 ** -30), 7, 2, 4, 3)
+    cks, sks = boolean.gen_keys(tiny, secret_seed=1, mask_seed=2, noise_seed=3,
+                                device=dev)
+    sks = dataclasses.replace(sks, backend="nuss")
+    rng = np.random.default_rng(4)
+    a, b = (rng.integers(0, 2, size=40).astype(bool) for _ in range(2))
+    ca, cb = (cks.encrypt(v, mask_seed=5 + i, noise_seed=9 + i)
+              for i, v in enumerate((a, b)))
+    got = sks.and_(ca, cb)
+    assert torch.equal(got.cpu(), sks.to("cpu").and_(ca, cb))
+    np.testing.assert_array_equal(cks.decrypt(got), a & b)
