@@ -5,8 +5,9 @@
 
 Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
 
-  build   compile csrc/mxu_kernels.cu and csrc/nuss_kernels.cu for sm_90a,
-          one nvcc each, in parallel (concrete_tpu_torch/_build/).
+  build   compile csrc/mxu_kernels.cu, nuss_kernels.cu, fused_kernels.cu and
+          ntt_kernels.cu for sm_90a, one nvcc each, in parallel
+          (concrete_tpu_torch/_build/).
   A       each hand-written kernel against its plain PyTorch version on the
           card, at the shapes of the main paths, bit for bit, with both
           device times (CUDA graph replay between CUDA events) and the
@@ -43,6 +44,20 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           one profiled call each; the first 2 CMux steps of 8 rows of the
           u32 N=8192 cell recomputed on the CPU must match the card; K1 and
           K5-K7 must launch.
+  E       the exact-NTT backend and the fused toeplitz step: backend="ntt"
+          twins of the TPU128, DEFAULT and TFHE_LIB keys (K9 every CMux
+          step) through AND, XOR, NAND and MUX requests of 100 and 2048
+          rows, every row on its truth table, AND equal to the mxu
+          backend's bit for bit, the median of 5 AND calls at B=2048 beside
+          the mxu backend's; a TFHE_LIB fast-mode ntt twin (levels=2)
+          through AND; 16 rows of a TPU128 ntt AND recomputed on the CPU;
+          the int4 LUT of phase C through LWEBSK(backend="ntt") (u64, three
+          primes: the torch composition) at B=256, PBS and multi-LUT, every
+          row decoded under the big key, equal to the mxu backend, timed
+          once; bootstrap_keyswitch_mxu(fused=True) (K8 every step) on the
+          three gate keys at B=2048, equal to fused=False, medians of 3
+          beside the unfused ones; one profiled TPU128 call each of the ntt
+          AND and the fused AND. K8 and K9 must launch.
 
 The last lines are the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line and {"ok": true, "device": {...}}. Any failure
@@ -65,7 +80,9 @@ import torch
 from concrete_tpu_torch import boolean, highlevel as hl, torus
 from concrete_tpu_torch.core import bootstrap as bs
 from concrete_tpu_torch.core import bootstrap_mxu as bsx
+from concrete_tpu_torch.core import bootstrap_ntt as bsntt
 from concrete_tpu_torch.core import bootstrap_nuss as bsn
+from concrete_tpu_torch.boolean.client_key import PLAINTEXT_LOG_SCALING_FACTOR
 from concrete_tpu_torch.core import lwe as lwe_ops
 from concrete_tpu_torch.highlevel.lwe import _accumulator, generate_functional_lut
 from concrete_tpu_torch.ops import _cuda
@@ -83,6 +100,8 @@ REQUESTS = {"TPU128": [100, 2048, 5000], "DEFAULT": [100, 2048],
 GATES = ("and_", "xor", "nand", "mux")
 MXU_SOURCE = "concrete_tpu_torch/csrc/mxu_kernels.cu"
 NUSS_SOURCE = "concrete_tpu_torch/csrc/nuss_kernels.cu"
+FUSED_SOURCE = "concrete_tpu_torch/csrc/fused_kernels.cu"
+NTT_SOURCE = "concrete_tpu_torch/csrc/ntt_kernels.cu"
 # kernel -> (its source, the TPU kernel it replaces)
 REPLACES = {
     "build_tables": (MXU_SOURCE, "concrete_tpu/core/bootstrap_mxu.py:238"),
@@ -92,18 +111,43 @@ REPLACES = {
     "recombine_inv": (NUSS_SOURCE, "concrete_tpu/core/bootstrap_nuss.py:438"),
     "recombine_inv64": (NUSS_SOURCE, "concrete_tpu/core/bootstrap_nuss.py:657"),
     "rotdig_fwd_nuss": (NUSS_SOURCE, "concrete_tpu/core/bootstrap_nuss.py:833"),
+    "fused_external_product_acc": (FUSED_SOURCE,
+                                   "concrete_tpu/ops/fused_cmux.py:77"),
+    "ntt_cmux": (NTT_SOURCE, "concrete_tpu/ops/pallas_cmux.py:114"),
 }
 # the kernels each main path must launch (phase B: u32 gates, C: u64 PBS,
-# D: the Nussbaumer backend on both tori)
+# D: the Nussbaumer backend on both tori, E: the ntt backend and the fused
+# toeplitz step)
 PATH_KERNELS = {"B": ("build_tables", "rotdig", "rotdig_recombine"),
                 "C": ("build_tables", "rotdig64"),
                 "D": ("build_tables", "recombine_inv", "recombine_inv64",
-                      "rotdig_fwd_nuss")}
+                      "rotdig_fwd_nuss"),
+                "E": ("ntt_cmux", "fused_external_product_acc")}
 CPU_ROWS = 32
 # the H100 SXM's published peaks: HBM bytes/s, and its float32 non-tensor
 # rate, taken for the kernels' integer ALU work
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+# K8's rate: the 1,979 TOP/s dense int8 tensor rate (hopper-kernels guide)
+INT8_TENSOR_OPS_PER_S = 1979e12
+# K9's integer rates, per clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0, and Nsight
+# Compute's pipe definitions): 64 lanes of 32-bit multiplies (IMAD, the FMA
+# pipe), 64 lanes of compares, min/max, selects and logic (the ALU pipe),
+# integer adds on either pipe (IADD3 or IMAD.IADD), and one warp
+# instruction per sub-partition, 128 lanes, over both; x 132 SMs x the H100
+# SXM's 1,980 MHz boost clock
+SM_CLOCKS_PER_S = 132 * 1.98e9
+PIPE_LANES, ISSUE_LANES = 64, 128
+# the fewest instructions an operation needs, as (multiplies, adds,
+# ALU-only): a Montgomery product is IMAD.WIDE a*b, IMAD m = lo*n' and
+# IMAD.WIDE m*p + a*b (whose high word is the REDC sum), then t - p and an
+# unsigned min; a modular add or subtract is the sum, the sum minus p or
+# plus p, and an unsigned min; the Garner step of one coefficient is a
+# modular subtract, a reduction of x1 mod p1 (add, min), a Montgomery
+# product, x1 + p0*x2 (one IMAD), the compare with ceil(M/2) (two), its
+# conditional subtract and the add into acc
+MONT, MODADD, GARNER = (3, 1, 1), (0, 2, 1), (4, 6, 5)
 # phase C: examples/int4_lut.py at the JAX suite's batch
 INT4 = {"lwe": hl.LWE128_630, "rlwe": hl.RLWE128_1024_1, "pbs": (7, 3),
         "ks": (2, 8), "batch": 2048}
@@ -116,15 +160,22 @@ NUSS_ENGINE = {"lwe_dimension": 100, "pbs": (2, 3), "batch": 256,
 INT4_8192 = {"rlwe": hl.RLWEParams(8192, 1, -62), "batch": 256}
 NUSS_CPU_STEPS, NUSS_CPU_ROWS = 2, 8
 NUSS_GATE_ROWS = 2048
+# phase E
+NTT_REQUESTS = (100, 2048)
+NTT_CPU_ROWS = 16
+INT4_NTT_BATCH = 256
+
+
+_COUNTED = (bsx, bsn, bsntt)
 
 
 def reset_launch_counts():
-    bsx.reset_launch_counts()
-    bsn.reset_launch_counts()
+    for mod in _COUNTED:
+        mod.reset_launch_counts()
 
 
 def launch_counts() -> dict[str, int]:
-    return {**bsx.launch_counts(), **bsn.launch_counts()}
+    return {k: v for mod in _COUNTED for k, v in mod.launch_counts().items()}
 
 
 def log(**fields):
@@ -241,6 +292,98 @@ def kernel_cases(dev):
             lambda rings=rings, d=drop: bsx.build_tables_plain(rings, n, d, 2),
             (rings,)))
     cases += nuss_kernel_cases(dev, rng, u32, u64, degrees)
+    cases += ntt_kernel_cases(dev, rng, u32, degrees)
+    cases += fused_kernel_cases(dev, rng, u32)
+    return cases
+
+
+def ntt_cmux_work(cfg, b: int) -> tuple[int, tuple[int, int, int]]:
+    """(Montgomery products, instructions as (multiplies, adds, ALU-only))
+    of one K9 step at batch b: per row, l*(k+1) forward NTTs per prime
+    (twist + N/2 log2 N butterflies, each a product, an add and a
+    subtract), the MAC of each against k+1 key spectra, (k+1) inverse NTTs
+    per prime (butterflies + untwist) and the Garner recombination. The
+    digit extraction and rotation are not counted."""
+    n, ks1, lv, p = cfg.polynomial_size, cfg.glwe_size, cfg.pbs_level, 2
+    butterflies = n // 2 * (n.bit_length() - 1)
+    fwd, inv = b * ks1 * lv * p, b * ks1 * p
+    macs = fwd * ks1 * n
+    garner = b * ks1 * n
+    products = (fwd + inv) * (n + butterflies) + macs + garner
+    count = {MONT: (fwd + inv) * (n + butterflies) + macs,
+             MODADD: (fwd + inv) * 2 * butterflies + macs, GARNER: garner}
+    return products, tuple(sum(c * op[i] for op, c in count.items())
+                           for i in range(3))
+
+
+def int_ops_s(mul: int, add: int, alu: int) -> float:
+    """Seconds the card needs at least for these 32-bit integer
+    instructions: each pipe at its rate, both within the issue rate."""
+    return max(mul / PIPE_LANES, alu / PIPE_LANES,
+               (mul + add + alu) / ISSUE_LANES) / SM_CLOCKS_PER_S
+
+
+def ntt_kernel_cases(dev, rng, u32, degrees):
+    """K9 at one CMux step of each gate preset at B=2048, and at the u32
+    N=8192 engine shape at B=256 (dynamic shared memory, 160 KB a block);
+    key spectra random residues below each prime."""
+    cases = []
+    cfgs = [(f"{name} one step B=2048",
+             bs.ServerConfig.from_boolean_parameters(params), 2048)
+            for name, params in PRESETS.items()]
+    cfgs.append(("u32 N=8192 engine one step B=256",
+                 nuss_config(8192, 32, *NUSS_ENGINE["pbs"]), 256))
+    for label, cfg, b in cfgs:
+        n, ks1 = cfg.polynomial_size, cfg.glwe_size
+        acc, a_hat = u32((ks1, b, n)), degrees(n, b)
+        ggsw = torch.from_numpy(np.stack([
+            rng.integers(0, p, size=(cfg.pbs_level, ks1, ks1, n), dtype=np.uint32)
+            for p in cfg.primes]).view(np.int32)).to(dev)
+        out = torch.empty_like(acc)
+        cases.append((
+            "ntt_cmux", label,
+            lambda c=cfg, acc=acc, a=a_hat, g=ggsw, o=out: bsntt.ntt_cmux(c, acc, a, g, out=o),
+            lambda c=cfg, acc=acc, a=a_hat, g=ggsw: bsntt.ntt_cmux_plain(c, acc, a, g),
+            (acc, a_hat, ggsw),
+            {"op_s": int_ops_s(*ntt_cmux_work(cfg, b)[1]),
+             "mont_products": ntt_cmux_work(cfg, b)[0]}))
+    return cases
+
+
+def fused_kernel_cases(dev, rng, u32):
+    """K8 at one CMux step of each gate preset at B=2048 (limb_drop 0;
+    DEFAULT's base_log 8 gives n_sub 2) and TPU128 with limb_drop 1, beside
+    the unfused mxu step it replaces (K1, torch._int_mm, recombine, add)."""
+    cases = []
+    cfgs = [(name, bs.ServerConfig.from_boolean_parameters(params))
+            for name, params in PRESETS.items()]
+    cfgs.append(("TPU128 drop 1", dataclasses.replace(cfgs[0][1], mxu_limb_drop=1)))
+    b = 2048
+    for name, cfg in cfgs:
+        plan = bsx.MxuPlan.from_config(cfg)
+        n, ks1, r = plan.polynomial_size, plan.glwe_size, plan.row_blocks
+        acc, rings = u32((ks1, b, n)), u32((r, ks1, 2 * n))
+        d8 = torch.from_numpy(rng.integers(-64, 65, size=(b, r * n),
+                                           dtype=np.int8)).to(dev)
+        out = torch.empty_like(acc)
+        rhs = torch.empty((r * n, ks1 * plan.limbs_used * n), dtype=torch.int8,
+                          device=dev)
+        s = torch.empty((b, ks1 * plan.limbs_used * n), dtype=torch.int32,
+                        device=dev)
+        macs = b * r * n * ks1 * plan.limbs_used * n
+        cases.append((
+            "fused_external_product_acc",
+            f"{name} one step B={b} n_sub={plan.n_sub} limbs={plan.limbs_used}",
+            lambda p=plan, acc=acc, d8=d8, rg=rings, o=out:
+                bsx.fused_external_product_acc(p, acc, d8, rg, out=o),
+            lambda p=plan, acc=acc, d8=d8, rg=rings:
+                bsx.fused_external_product_acc_plain(p, acc, d8, rg),
+            (acc, d8, rings),
+            {"op_s": 2 * macs / INT8_TENSOR_OPS_PER_S,
+             "unfused": lambda p=plan, acc=acc, d8=d8, rg=rings, rhs=rhs, s=s:
+                 acc + bsx._toeplitz_matmul(
+                     p, d8, bsx.build_tables(rg, p.polynomial_size, p.limb_drop,
+                                             out=rhs), out=s)}))
     return cases
 
 
@@ -309,13 +452,16 @@ def _int4_config(base_log, level, drop=0) -> bs.ServerConfig:
         bits=64, mxu_limb_drop=drop)
 
 
-def bound_ms(inputs, outputs) -> tuple[float, str]:
+def bound_ms(inputs, outputs, op_s=None) -> tuple[float, str]:
     """The least time the card could take: each input read once and each
-    output written once at the HBM rate, against one ALU operation per
-    output element (a lower bound on the work) at the peak rate."""
+    output written once at the HBM rate, against the kernel's operations
+    at their peak rate (`op_s` seconds: K8's int8 MACs at the tensor rate,
+    K9's integer instructions at the integer pipes' rates), else one ALU operation
+    per output element (a lower bound on the work) at the float32 rate."""
     moved = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
-    ops = sum(t.numel() for t in outputs)
-    by_bytes, by_ops = moved / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
+    by_bytes = moved / HBM_BYTES_PER_S
+    by_ops = (sum(t.numel() for t in outputs) / ALU_OPS_PER_S if op_s is None
+              else op_s)
     return (max(by_bytes, by_ops) * 1e3,
             "bytes" if by_bytes >= by_ops else "operations")
 
@@ -324,7 +470,8 @@ def phase_a(dev, card):
     """Every kernel equal to its plain version; returns the headline row
     per kernel (its first case) for the kernels line."""
     rows = {}
-    for kernel, label, run, plain, inputs in kernel_cases(dev):
+    for kernel, label, run, plain, inputs, *extra in kernel_cases(dev):
+        extra = extra[0] if extra else {}
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
@@ -336,10 +483,15 @@ def phase_a(dev, card):
                                  f"version, max |err| = {err}")
         ms, plain_ms = time_ms(run), time_ms(plain)
         bound, bound_by = bound_ms(inputs, got if isinstance(got, tuple)
-                                   else (got,))
+                                   else (got,), extra.get("op_s"))
+        more = {}
+        if "unfused" in extra:
+            more["unfused_step_ms"] = time_ms(extra["unfused"])
+        if "mont_products" in extra:
+            more["mont_products"] = extra["mont_products"]
         log(phase="A", kernel=kernel, shape=label, equal=True, max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-            card=card)
+            **more, card=card)
         row = rows.setdefault(kernel, {"ms": ms, "plain_ms": plain_ms,
                                        "bound_ms": bound, "bound_by": bound_by,
                                        "max_abs_err": 0})
@@ -418,7 +570,9 @@ def phase_b(dev, card):
 
 # device kernels by name, as the profiler shows them (demangled): ours,
 # then the int8 GEMM that torch._int_mm runs
-_KERNEL_KINDS = (("build_tables", "K1 build_tables"),
+_KERNEL_KINDS = (("ntt_cmux_kernel", "K9 ntt_cmux"),
+                 ("fused_cmux_kernel", "K8 fused_cmux"),
+                 ("build_tables", "K1 build_tables"),
                  ("rotdig_recombine", "K3 rotdig_recombine"),
                  ("rotdig_kernel<unsigned long", "K4 rotdig64"),
                  ("rotdig_kernel<unsigned int", "K2 rotdig"),
@@ -783,6 +937,143 @@ def phase_d(dev, card):
     return launches
 
 
+def ntt_gate_server(name, params, dev, card):
+    """E, per preset: the ntt twin of the phase-B key (same seeds) serving
+    AND/XOR/NAND/MUX requests, AND equal to the mxu backend; the AND median
+    beside the mxu one; K8 through the fused gate pipeline. Returns the
+    TPU128 CPU cross-check inputs (else None)."""
+    cks, sks = boolean.gen_keys(params, secret_seed=11, mask_seed=12,
+                                noise_seed=13, device=dev)
+    ntt = dataclasses.replace(sks, backend="ntt", _warmed_tiers=set())
+    t0 = time.perf_counter()
+    ntt.bsk_ntt, ntt.ksk8  # noqa: B018 - key preparation on the card
+    torch.cuda.synchronize()
+    log(phase="E", params=name, backend=ntt.resolved_backend(),
+        primes=list(ntt.cfg.primes), k9=bsntt.kernel_applies(ntt.cfg),
+        key_prep_s=time.perf_counter() - t0,
+        bsk_ntt_mb=ntt.bsk_ntt.numel() * 4 / 1e6)
+    cpu_check = None
+    for size in NTT_REQUESTS:
+        (a, b, c), (ca, cb, cc) = encrypt_bools(cks, size, 5000 + size)
+        for gate in GATES:
+            out = call_gate(ntt, gate, ca, cb, cc)
+            if not np.array_equal(cks.decrypt(out), truth(gate, a, b, c)):
+                raise AssertionError(f"{name} ntt {gate} size {size}: wrong "
+                                     "truth table")
+            if gate == "and_":
+                if not torch.equal(out, sks.and_(ca, cb)):
+                    raise AssertionError(f"{name} ntt AND differs from mxu")
+                if name == "TPU128" and size == 2048:
+                    cpu_check = (ntt, ca[:NTT_CPU_ROWS], cb[:NTT_CPU_ROWS],
+                                 out[:NTT_CPU_ROWS].cpu())
+        log(phase="E", params=name, backend="ntt", request_rows=size,
+            gates=list(GATES), truth_tables="ok", and_equal_to_mxu=True)
+    (a, b, _), (ca, cb, _) = encrypt_bools(cks, 2048, 7)
+    ca, cb = torus.from_numpy(ca, dev), torus.from_numpy(cb, dev)
+    ntt_s = median_s(lambda: ntt.and_(ca, cb))
+    mxu_s = median_s(lambda: sks.and_(ca, cb))
+    log(phase="E", params=name, tier=2048, gate="and_",
+        ntt_ms_per_call=ntt_s * 1e3, ntt_gates_per_s=2048 / ntt_s,
+        mxu_ms_per_call=mxu_s * 1e3, mxu_gates_per_s=2048 / mxu_s, card=card)
+
+    # AND's linear combination (server_key/mod.rs): a + b - 1/8 of the torus
+    lin = ca + cb
+    lin[:, -1] -= 1 << (32 - PLAINTEXT_LOG_SCALING_FACTOR)
+
+    def gate_mxu(fused):
+        return bsx.bootstrap_keyswitch_mxu(sks.cfg, sks.bsk_mxu, sks.ksk8,
+                                           sks._lut(), lin, fused=fused)
+
+    fused_out = gate_mxu(True)
+    if not np.array_equal(cks.decrypt(fused_out), a & b):
+        raise AssertionError(f"{name}: the fused AND's truth table is wrong")
+    if not torch.equal(fused_out, gate_mxu(False)):
+        raise AssertionError(f"{name}: the fused gate differs from unfused")
+    fused_s = median_s(lambda: gate_mxu(True), reps=3)
+    unfused_s = median_s(lambda: gate_mxu(False), reps=3)
+    log(phase="E", params=name, tier=2048, gate="and_ (bootstrap_keyswitch_mxu)",
+        fused_equal_to_unfused=True, fused_ms_per_call=fused_s * 1e3,
+        unfused_ms_per_call=unfused_s * 1e3, card=card)
+    if name == "TPU128":
+        profile_call("TPU128 ntt AND B=2048", lambda: ntt.and_(ca, cb), card)
+        profile_call("TPU128 fused AND B=2048", lambda: gate_mxu(True), card)
+    if name == "TFHE_LIB":
+        fast = ntt.with_fast_mode()
+        (a, b, _), (ca2, cb2, _) = encrypt_bools(cks, 2048, 3000)
+        if not np.array_equal(cks.decrypt(fast.and_(ca2, cb2)), a & b):
+            raise AssertionError("TFHE_LIB fast ntt AND: wrong truth table")
+        ca2, cb2 = torus.from_numpy(ca2, dev), torus.from_numpy(cb2, dev)
+        med = median_s(lambda: fast.and_(ca2, cb2), reps=3)
+        log(phase="E", params="TFHE_LIB fast (levels=2) ntt",
+            primes=list(fast.cfg.primes), tier=2048, truth_tables="ok",
+            ms_per_call=med * 1e3, gates_per_s=2048 / med, card=card)
+    return cpu_check
+
+
+def ntt_int4(dev, card):
+    """E: the int4 LUT of phase C through LWEBSK(backend="ntt") at B=256
+    (u64, three primes: the torch composition on the card): one PBS and
+    one multi-LUT call, every row decoded under the big key, equal to the
+    mxu backend, the PBS timed once."""
+    (bl, lv), b = INT4["pbs"], INT4_NTT_BATCH
+    sk = hl.LWESecretKey.new(INT4["lwe"], secret_seed=21)
+    rsk = hl.RLWESecretKey.new(INT4["rlwe"], secret_seed=22)
+    big = rsk.to_lwe_secret_key()
+    bsk = hl.LWEBSK.new(sk, rsk, bl, lv, mask_seed=23, noise_seed=24,
+                        device=dev, backend="ntt")
+    t0 = time.perf_counter()
+    bsk.bsk_ntt  # noqa: B018 - key preparation on the card
+    torch.cuda.synchronize()
+    log(phase="E", cell=f"int4 ntt B={b}", primes=list(bsk.cfg.primes),
+        k9=bsntt.kernel_applies(bsk.cfg), key_prep_s=time.perf_counter() - t0)
+    enc = hl.Encoder.new(0.0, 15.0, nb_bit_precision=4, nb_bit_padding=1)
+    xs = np.random.default_rng(27).integers(0, 16, size=b).astype(np.float64)
+    v = hl.VectorLWE.encode_encrypt(sk, xs, enc, mask_seed=28, noise_seed=29)
+    out = v.bootstrap_all_with_function(bsk, int4_table, enc)
+    wrong = int(np.sum(np.round(out.decrypt_decode(big)) != (3 * xs + 1) % 16))
+    if wrong:
+        raise AssertionError(f"int4 ntt: {wrong} of {b} PBS rows decode wrong")
+    acc = torus.from_numpy(
+        _accumulator(bsk, generate_functional_lut(bsk, enc, enc, int4_table)),
+        dev)
+    cts = torus.from_numpy(v.data, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = bsk.run_bootstrap(acc, cts)
+    torch.cuda.synchronize()
+    pbs_s = time.perf_counter() - t0
+    mxu = dataclasses.replace(bsk, backend="mxu")
+    if not torch.equal(got, mxu.run_bootstrap(acc, cts)):
+        raise AssertionError("int4 ntt PBS differs from mxu")
+    enc3, ct3, want3 = multi_lut_inputs(sk, xs, 30)
+    check_multi_lut("int4 ntt", ct3.bootstrap_with_functions(bsk, MULTI_FNS, enc3),
+                    want3, big)
+    log(phase="E", cell=f"int4 ntt B={b}", rows=b, wrong_rows=0,
+        multi_lut_functions=len(MULTI_FNS), equal_to_mxu=True,
+        ms_per_call=pbs_s * 1e3, pbs_per_s=b / pbs_s, card=card)
+
+
+def phase_e(dev, card):
+    """The ntt backend and the fused step; returns the kernel launches of
+    the main path (the CPU cross-check runs after the count is read)."""
+    reset_launch_counts()
+    cpu_check = None
+    for name, params in PRESETS.items():
+        cpu_check = ntt_gate_server(name, params, dev, card) or cpu_check
+        torch.cuda.empty_cache()
+    ntt_int4(dev, card)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(phase="E", launches=launches)
+    t0 = time.perf_counter()
+    ntt, ca, cb, want = cpu_check
+    if not torch.equal(ntt.to("cpu").and_(ca, cb), want):
+        raise AssertionError("CPU recomputation of the ntt AND differs")
+    log(phase="cpu_check", params="TPU128 ntt", gate="and_", rows=NTT_CPU_ROWS,
+        bit_identical=True, seconds=time.perf_counter() - t0)
+    return launches
+
+
 def check_launched(path: str, launches: dict):
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
@@ -791,8 +1082,8 @@ def check_launched(path: str, launches: dict):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="ABCD",
-                        help="phases to run (default all: ABCD)")
+    parser.add_argument("--phases", default="ABCDE",
+                        help="phases to run (default all: ABCDE)")
     phases = parser.parse_args().phases
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs one GPU")
@@ -836,7 +1127,7 @@ def main():
         del sks, cpu_check
         torch.cuda.empty_cache()
 
-    for path, run in (("C", phase_c), ("D", phase_d)):
+    for path, run in (("C", phase_c), ("D", phase_d), ("E", phase_e)):
         if path in phases:
             t0 = time.perf_counter()
             path_launches[path] = run(dev, card)

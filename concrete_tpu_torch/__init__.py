@@ -8,8 +8,10 @@ package writes in Pallas for the TPU are hand-written CUDA C++ here
 (``csrc/``), built at first use on a CUDA machine; on CPU tensors their
 plain PyTorch versions run instead.
 
-Ported so far: the boolean-gate bootstrap on the u32 torus through the
-toeplitz ("mxu") backend — ``concrete_tpu_torch.boolean``.
+Ported so far: the boolean gates (``concrete_tpu_torch.boolean``, u32
+torus) and the high-level API (``concrete_tpu_torch.highlevel``, u64 torus)
+through the toeplitz ("mxu"), Nussbaumer ("nuss") and exact-NTT ("ntt")
+backends of the bootstrap.
 """
 
 from . import dispersion, params  # noqa: F401

@@ -7,8 +7,9 @@ Every bootstrapped gate is a linear combination, a PBS with the constant
   XOR:  2(l + r) + 1/4     XNOR: 2(-l - r) - 1/4
   NOT:  -l (no bootstrap)  MUX:  pbs(c+t-1/8) + pbs(-c+e-1/8) + 1/8, keyswitch
 The PBS runs through the toeplitz ("mxu") backend for N <= 4096 and the
-Nussbaumer ("nuss") backend above (`backend="auto"`), or the one named by
-`backend`; the two are bit-identical. Gates take np.uint32 arrays or int32
+Nussbaumer ("nuss") backend above (`backend="auto"`), the exact-NTT ("ntt")
+backend where neither takes the configuration, or the one named by
+`backend`; the three are bit-identical. Gates take np.uint32 arrays or int32
 tensors [..., n+1] and return int32 tensors on the key's device.
 
 Example (AND and XOR on tiny insecure parameters, on the CPU):
@@ -35,9 +36,10 @@ import torch
 
 from ..core import bootstrap as bs
 from ..core import bootstrap_mxu as bsx
+from ..core import bootstrap_ntt as bsntt
 from ..core import bootstrap_nuss as bsn
 from ..core import lwe as lwe_ops
-from ..core.ggsw import StandardBootstrapKey
+from ..core.ggsw import StandardBootstrapKey, bsk_to_ntt
 from ..ops import _cuda
 from ..params import BooleanParameters
 from ..torus import EncryptionRandom, as_torus, from_numpy, i32
@@ -69,9 +71,10 @@ _SAVED_CONFIG = ("lwe_dimension", "glwe_dimension", "polynomial_size",
 class ServerKey:
     """Coefficient-domain bootstrap key + keyswitch key + configuration.
 
-    The evaluation forms (toeplitz or Nussbaumer rings of the BSK, int8 limb
-    planes of the KSK) are derived from the stored arrays at first use, on
-    `device`. `backend` is "mxu", "nuss" or "auto" (resolved_backend)."""
+    The evaluation forms (toeplitz or Nussbaumer rings or NTT spectra of the
+    BSK, int8 limb planes of the KSK) are derived from the stored arrays at
+    first use, on `device`. `backend` is "mxu", "nuss", "ntt" or "auto"
+    (resolved_backend)."""
 
     ksk: np.ndarray               # [k*N, l_ks, n+1] np.uint32
     cfg: bs.ServerConfig
@@ -80,6 +83,7 @@ class ServerKey:
     backend: str = "auto"
     _bsk_mxu: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     _bsk_nuss: torch.Tensor | None = dataclasses.field(default=None, repr=False)
+    _bsk_ntt: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     _ksk8: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     # batch tiers run by warmup(); _pad_size pads smaller requests up to them
     _warmed_tiers: set = dataclasses.field(
@@ -97,12 +101,11 @@ class ServerKey:
                 f"not match the configuration ({bsk_shape} / {ksk_shape})")
 
     def resolved_backend(self) -> str:
-        """The backend the gates run: `backend` when it is "mxu" or "nuss"
-        (checked against the configuration), else "mxu" where its plan
-        accepts the configuration (N <= 4096) and "nuss" where the
-        Nussbaumer plan does (N = 8192, 16384) — the order of concrete_tpu,
-        which picks its NTT backend off the TPU. Raises NotImplementedError
-        where neither does: the NTT backend is not ported yet."""
+        """The backend the gates run: `backend` when it is "mxu", "nuss" or
+        "ntt" (checked against the configuration), else "mxu" where its plan
+        accepts the configuration (N <= 4096), "nuss" where the Nussbaumer
+        plan does (N = 8192, 16384) and "ntt" elsewhere: concrete_tpu's
+        order on the TPU (off the TPU it picks ntt)."""
         return bsn.resolve_backend(self.cfg, self.backend)
 
     @property
@@ -124,10 +127,21 @@ class ServerKey:
         return self._bsk_nuss
 
     @property
+    def bsk_ntt(self) -> torch.Tensor:
+        """NTT spectra [n, P, l, k+1, k+1, N] int32, converted on the device
+        (ggsw.bsk_to_ntt)."""
+        if self._bsk_ntt is None:
+            self._bsk_ntt = bsk_to_ntt(self.bsk_standard,
+                                       self.cfg.primes, 32,
+                                       device=self.device)
+        return self._bsk_ntt
+
+    @property
     def ksk8(self) -> torch.Tensor:
         """int8 limb-prepared keyswitch key [k*N*l_ks, 4*(n+1)]
-        (lwe.ksk_to_limbs), on both backends, as concrete_tpu's
-        _keyswitch_key takes it on mxu and nuss."""
+        (lwe.ksk_to_limbs), on every backend: concrete_tpu's _keyswitch_key
+        takes it on mxu and nuss, and its u32 keyswitch on ntt gives the
+        same bits."""
         if self._ksk8 is None:
             if not (self.cfg.ks_base_log <= 7
                     and self.ksk.shape[0] * self.ksk.shape[1] * 8192 < 2 ** 31):
@@ -191,8 +205,8 @@ class ServerKey:
         move = (lambda t: None if t is None else t.to(device))
         return dataclasses.replace(
             self, device=torch.device(device), _bsk_mxu=move(self._bsk_mxu),
-            _bsk_nuss=move(self._bsk_nuss), _ksk8=move(self._ksk8),
-            _warmed_tiers=set())
+            _bsk_nuss=move(self._bsk_nuss), _bsk_ntt=move(self._bsk_ntt),
+            _ksk8=move(self._ksk8), _warmed_tiers=set())
 
     def with_fast_mode(self, *, limb_drop: int = 0,
                        levels: int | None = 2) -> "ServerKey":
@@ -201,12 +215,12 @@ class ServerKey:
         most significant PBS decomposition levels (the bootstrap key is
         sliced), ``limb_drop`` rounds the bootstrap-key operand of the
         toeplitz product (which the JAX package advises against on the u32
-        torus; the nuss backend ignores it). The keyswitch key, client keys
-        and ciphertexts are unchanged."""
+        torus; the nuss and ntt backends ignore it). The keyswitch key,
+        client keys and ciphertexts are unchanged."""
         cfg = self.cfg.with_fast_mode(limb_drop=limb_drop, levels=levels)
         return dataclasses.replace(
             self, cfg=cfg, bsk_standard=self.bsk_standard[:, :cfg.pbs_level],
-            _bsk_mxu=None, _bsk_nuss=None, _warmed_tiers=set())
+            _bsk_mxu=None, _bsk_nuss=None, _bsk_ntt=None, _warmed_tiers=set())
 
     # -- batching ------------------------------------------------------------
 
@@ -268,9 +282,13 @@ class ServerKey:
         def run(a, b):
             lin = lin_fn(a, b)
             lin[:, -1] += offset
-            if self.resolved_backend() == "nuss":
+            backend = self.resolved_backend()
+            if backend == "nuss":
                 return bsn.bootstrap_keyswitch_nuss(
                     self.cfg, self.bsk_nuss, self.ksk8, self._lut(), lin)
+            if backend == "ntt":
+                return bsntt.bootstrap_keyswitch(
+                    self.cfg, self.bsk_ntt, self.ksk8, self._lut(), lin)
             return bsx.bootstrap_keyswitch_mxu(
                 self.cfg, self.bsk_mxu, self.ksk8, self._lut(), lin)
 
@@ -308,9 +326,13 @@ class ServerKey:
             lin2 = e - c
             lin2[:, -1] += _NEG_EIGHTH
             both = torch.stack([lin1, lin2])
-            if self.resolved_backend() == "nuss":
+            backend = self.resolved_backend()
+            if backend == "nuss":
                 pbs = bsn.bootstrap_nuss(self.cfg, self.bsk_nuss, self._lut(),
                                          both)
+            elif backend == "ntt":
+                pbs = bsntt.bootstrap(self.cfg, self.bsk_ntt, self._lut(),
+                                      both)
             else:
                 pbs = bsx.bootstrap_mxu(self.cfg, self.bsk_mxu, self._lut(),
                                         both)

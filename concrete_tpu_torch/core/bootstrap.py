@@ -1,6 +1,7 @@
 """Bootstrap building blocks shared by every backend: the static server
 configuration, the modulus switch to Z_2N, sample extraction and the
 boolean gates' constant test polynomial (crypto/bootstrap/fourier/mod.rs).
+The exact-NTT backend itself is core/bootstrap_ntt.py.
 
 u32 torus values ride int32 tensors and u64 ones int64 tensors (see
 ``concrete_tpu_torch.torus``).
@@ -13,21 +14,25 @@ Example (modulus switch to the 2N grid: 1/2 of the torus -> 8 of 16):
     >>> pbs_modulus_switch(from_numpy(np.array([1 << 63], np.uint64)), 8).tolist()
     [8]
 
-A reduced-precision view of one configuration (the same keys):
+A reduced-precision view of one configuration (the same keys), and the CRT
+primes of the ntt backend, derived from the other fields:
     >>> cfg = ServerConfig(lwe_dimension=8, glwe_dimension=1, polynomial_size=64,
     ...     pbs_base_log=7, pbs_level=3, ks_base_log=2, ks_level=8, bits=64)
     >>> fast = cfg.with_fast_mode(limb_drop=2)
     >>> fast.pbs_level, fast.mxu_limb_drop
+    (3, 2)
+    >>> len(cfg.primes), len(dataclasses.replace(cfg, bits=32).primes)
     (3, 2)
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
-from ..math import polynomial
+from ..math import crt, ntt, polynomial
 from ..params import BooleanParameters
 from ..torus import as_torus, bits_of, carrier, lshr
 
@@ -89,6 +94,40 @@ class ServerConfig:
     @property
     def big_lwe_dimension(self) -> int:
         return self.glwe_dimension * self.polynomial_size
+
+    @property
+    def primes(self) -> tuple[int, ...]:
+        """The CRT primes of the ntt backend (concrete_tpu's
+        ServerConfig.primes): the smallest prefix of ntt.DEFAULT_PRIMES whose
+        product bounds the external product. Raises ValueError or
+        NotImplementedError where the ntt backend cannot take the
+        configuration, as concrete_tpu's ServerConfig does; the other
+        backends still take it."""
+        return _ntt_primes(self.polynomial_size,
+                           self.pbs_level * self.glwe_size,
+                           self.pbs_base_log, self.bits)
+
+    @property
+    def crt_context(self) -> crt.CrtContext:
+        return crt.CrtContext.new(self.primes, self.bits)
+
+    def plan(self, p: int) -> ntt.NttPlan:
+        return ntt.make_plan(self.polynomial_size, p)
+
+
+@functools.lru_cache(maxsize=None)
+def _ntt_primes(n: int, terms: int, base_log: int, bits: int) -> tuple[int, ...]:
+    """ServerConfig.primes for N = n, terms = l*(k+1) products a
+    coefficient: crt.select_primes of the external-product bound. The ntt
+    path maps signed digits to residues with one +p fixup, which needs
+    |digit| <= B/2 < min(prime)."""
+    primes = crt.select_primes(
+        crt.external_product_bound(n, terms, 1 << base_log, bits))
+    if (1 << (base_log - 1)) >= min(primes):
+        raise NotImplementedError(
+            f"pbs_base_log={base_log}: gadget digits exceed the smallest CRT "
+            f"prime {min(primes)}")
+    return primes
 
 
 def pbs_modulus_switch(x: torch.Tensor, poly_size: int, offset: int = 0,

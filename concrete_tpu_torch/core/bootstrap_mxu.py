@@ -18,12 +18,14 @@ One CMux step of the blind rotation, batch B, L = bits/8 - limb_drop limbs:
     int_mm              S = d8 @ rhs                    -> [B, (k+1)*L*N] int32
     recombine           acc += sum_m S_m << 8(limb_drop + m)
 At large batch on the u32 torus the dot-first form folds the recombine of
-step j into the digit kernel of step j+1 (rotdig_recombine, K3).
+step j into the digit kernel of step j+1 (rotdig_recombine, K3). On request
+(`fused=True`, u32 torus) the table build, dot and recombine of a step run
+as one kernel instead (K8, fused_external_product_acc) after K2's digits.
 
 Each kernel wrapper below takes its plain PyTorch version when its tensors
 lie on the CPU, and launches the hand-written CUDA kernel
-(csrc/mxu_kernels.cu) when they lie on a CUDA device; `launches` counts the
-kernel launches.
+(csrc/mxu_kernels.cu; K8's in csrc/fused_kernels.cu) when they lie on a
+CUDA device; `launches` counts the kernel launches.
 
 Example:
     >>> from concrete_tpu_torch.core.bootstrap import ServerConfig
@@ -466,7 +468,68 @@ def rotdig_recombine(plan: MxuPlan, s: torch.Tensor, acc: torch.Tensor,
 
 rotdig_recombine.launches = 0
 
-KERNELS = (build_tables, rotdig, rotdig_recombine, rotdig64)
+FUSED_TILE = 64  # K8's row, column and depth tile
+
+
+def fused_external_product_acc_plain(plan: MxuPlan, acc: torch.Tensor,
+                                     d8: torch.Tensor,
+                                     rings: torch.Tensor) -> torch.Tensor:
+    """acc [k+1, B, N] int32 + recombine(d8 [B, R*N] int8 @ T(rings)),
+    rings [R, k+1, 2N] int32: build_tables_plain -> int_mm ->
+    recombine_limb_planes -> add."""
+    rhs = build_tables_plain(rings, plan.polynomial_size, plan.limb_drop)
+    return acc + recombine_limb_planes(plan, int_mm(d8, rhs))
+
+
+def fused_external_product_acc(plan: MxuPlan, acc: torch.Tensor,
+                               d8: torch.Tensor, rings: torch.Tensor, *,
+                               out: torch.Tensor | None = None):
+    """K8, the toeplitz CMux accumulation in one kernel
+    (fused_external_product_acc_plain) on the u32 torus, limb_drop 0-2: the
+    kernel (csrc/fused_kernels.cu) builds the table tiles it needs in shared
+    memory from a window of the ring and never writes T to device memory.
+    `out` may be `acc` itself: each output word is read and written by one
+    thread, so the update is then made in place.
+
+    >>> plan = MxuPlan.from_config(ServerConfig(lwe_dimension=4,
+    ...     glwe_dimension=1, polynomial_size=64, pbs_base_log=7, pbs_level=2,
+    ...     ks_base_log=4, ks_level=3))
+    >>> acc = torch.ones((2, 3, 64), dtype=torch.int32)
+    >>> d8 = torch.zeros((3, plan.row_blocks * 64), dtype=torch.int8)
+    >>> rings = torch.zeros((plan.row_blocks, 2, 128), dtype=torch.int32)
+    >>> torch.equal(fused_external_product_acc(plan, acc, d8, rings), acc)
+    True
+    """
+    if plan.bits != 32:
+        raise ValueError("K8 runs the u32 torus only (the u64 torus keeps "
+                         "the unfused step)")
+    ks1, b, n = acc.shape
+    r = plan.row_blocks
+    _check(acc, "acc", torch.int32, (plan.glwe_size, b, plan.polynomial_size))
+    _check(d8, "d8", torch.int8, (b, r * n))
+    _check(rings, "rings", torch.int32, (r, ks1, 2 * n))
+    if out is not None:
+        _check(out, "out", torch.int32, acc.shape)
+    if _on_cpu(acc, d8, rings, out):
+        res = fused_external_product_acc_plain(plan, acc, d8, rings)
+        return res if out is None else out.copy_(res)
+    if n % FUSED_TILE:
+        raise ValueError(f"polynomial_size {n}: K8 takes multiples of "
+                         f"{FUSED_TILE}")
+    if out is None:
+        out = torch.empty_like(acc)
+    if b:
+        _check_kernel_operands(n, acc, d8, rings, out)
+        _cuda.launch("ctt_fused_cmux", acc, d8, rings, out, b, ks1, n, r,
+                     plan.limbs_used, plan.limb_drop)
+        fused_external_product_acc.launches += 1
+    return out
+
+
+fused_external_product_acc.launches = 0
+
+KERNELS = (build_tables, rotdig, rotdig_recombine, rotdig64,
+           fused_external_product_acc)
 
 
 def launch_counts() -> dict[str, int]:
@@ -542,9 +605,23 @@ def _deferred_scan(plan: MxuPlan, bsk_rings, acc, a_hats):
     return acc
 
 
+def _fused_scan(plan: MxuPlan, bsk_rings, acc, a_hats):
+    """One CMux step per mask element: digits (K2), then table build, dot,
+    recombine and accumulate in one kernel (K8), in place. u32 torus only."""
+    n, r = plan.polynomial_size, plan.row_blocks
+    d8 = torch.empty((acc.shape[1], r * n), dtype=torch.int8,
+                     device=acc.device)
+    acc = acc.clone()
+    for i in range(a_hats.shape[0]):
+        rotdig(plan, acc, a_hats[i], out=d8)
+        fused_external_product_acc(plan, acc, d8, bsk_rings[i], out=acc)
+    return acc
+
+
 def blind_rotate_mxu(cfg: ServerConfig, bsk_rings: torch.Tensor,
                      lut: torch.Tensor, lwe: torch.Tensor, *,
-                     ms_offset: int = 0, lut_count_log: int = 0):
+                     ms_offset: int = 0, lut_count_log: int = 0,
+                     fused: bool = False):
     """Blind rotation with the toeplitz-matmul CMux chain.
 
     bsk_rings [n, R, (k+1)*n_words, 2N] int32 (bsk_to_mxu); lut [..., k+1, N]
@@ -552,8 +629,13 @@ def blind_rotate_mxu(cfg: ServerConfig, bsk_rings: torch.Tensor,
     rotated accumulator [..., k+1, N], bit-identical to concrete_tpu's
     blind_rotate_mxu. The u32 torus takes the dot-first loop where
     auto_defer says so, as the JAX package does; the u64 torus always takes
-    the plain loop."""
+    the plain loop. `fused=True` (the JAX package's CONCRETE_TPU_FUSED=1)
+    takes the plain loop with K8 in place of the table, dot and recombine;
+    it runs the u32 torus only and raises ValueError on u64, where the JAX
+    package would ignore it."""
     plan = MxuPlan.from_config(cfg)
+    if fused and plan.bits != 32:
+        raise ValueError("fused=True runs the u32 torus only")
     n_lwe, N, ks1 = cfg.lwe_dimension, plan.polynomial_size, plan.glwe_size
     if tuple(bsk_rings.shape) != (n_lwe, plan.row_blocks, ks1 * plan.n_words,
                                   2 * N):
@@ -572,30 +654,38 @@ def blind_rotate_mxu(cfg: ServerConfig, bsk_rings: torch.Tensor,
     lut_b = lut.reshape(-1, ks1, N).expand(b, ks1, N)
     acc = polynomial.negacyclic_monomial_div(
         lut_b.permute(1, 0, 2), b_hat[None, :]).contiguous()      # [k+1, B, N]
-    deferred = plan.bits == 32 and auto_defer(plan, b)
-    scan = _deferred_scan if deferred else _plain_scan
+    if fused:
+        scan = _fused_scan
+    elif plan.bits == 32 and auto_defer(plan, b):
+        scan = _deferred_scan
+    else:
+        scan = _plain_scan
     acc = scan(plan, bsk_rings, acc, a_hats)
     return acc.permute(1, 0, 2).reshape(lead + (ks1, N))
 
 
-def bootstrap_mxu(cfg: ServerConfig, bsk_rings, lut, lwe):
+def bootstrap_mxu(cfg: ServerConfig, bsk_rings, lut, lwe, *,
+                  fused: bool = False):
     """Full PBS (fourier/mod.rs:878-911): [..., n+1] -> [..., k*N+1]."""
-    return sample_extract(blind_rotate_mxu(cfg, bsk_rings, lut, lwe))
+    return sample_extract(blind_rotate_mxu(cfg, bsk_rings, lut, lwe,
+                                           fused=fused))
 
 
 def bootstrap_many_lut_mxu(cfg: ServerConfig, bsk_rings, lut, lwe,
-                           lut_count_log: int, *, ms_offset: int = 0):
+                           lut_count_log: int, *, ms_offset: int = 0,
+                           fused: bool = False):
     """Multi-LUT PBS: one blind rotation, 2^lut_count_log extractions ->
     [2^lcl, ..., k*N+1]."""
     acc = blind_rotate_mxu(cfg, bsk_rings, lut, lwe, ms_offset=ms_offset,
-                           lut_count_log=lut_count_log)
+                           lut_count_log=lut_count_log, fused=fused)
     return torch.stack(
         [sample_extract_nth(acc, t) for t in range(1 << lut_count_log)], dim=0)
 
 
-def bootstrap_keyswitch_mxu(cfg: ServerConfig, bsk_rings, ksk8, lut, lwe):
+def bootstrap_keyswitch_mxu(cfg: ServerConfig, bsk_rings, ksk8, lut, lwe, *,
+                            fused: bool = False):
     """PBS + keyswitch, the per-gate pipeline (server_key/mod.rs:133-166),
     against an int8 limb-prepared keyswitch key (lwe.ksk_to_limbs)."""
-    big = bootstrap_mxu(cfg, bsk_rings, lut, lwe)
+    big = bootstrap_mxu(cfg, bsk_rings, lut, lwe, fused=fused)
     return lwe_ops.keyswitch_limbs(ksk8, big, base_log=cfg.ks_base_log,
                                    level_count=cfg.ks_level)

@@ -195,18 +195,23 @@ class NussPlan:
 
 
 def resolve_backend(cfg: ServerConfig, backend: str) -> str:
-    """The bootstrap backend for `cfg`: "mxu" or "nuss" when named (and the
-    plan accepts the configuration), else the first of them whose plan does.
-    Raises NotImplementedError otherwise: the NTT backend is not ported."""
+    """The bootstrap backend for `cfg`: "mxu", "nuss" or "ntt" when named
+    (and the backend takes the configuration), else for "auto" the first of
+    mxu (N <= 4096) and nuss whose plan accepts it, and "ntt" where neither
+    does: the JAX package's TPU order (concrete_tpu's ServerKey
+    .resolved_backend)."""
     if backend == "mxu":
         bsx.MxuPlan.from_config(cfg)
         return backend
     if backend == "nuss":
         NussPlan.from_config(cfg)
         return backend
+    if backend == "ntt":
+        _ = cfg.primes  # raises where the ntt backend cannot take cfg
+        return backend
     if backend != "auto":
-        raise NotImplementedError(f"backend {backend!r}: the port has the mxu "
-                                  "and nuss backends (ntt is not ported)")
+        raise ValueError(f"backend {backend!r}: expected mxu, nuss, ntt or "
+                         "auto")
     try:
         bsx.MxuPlan.from_config(cfg)
         return "mxu"
@@ -215,10 +220,8 @@ def resolve_backend(cfg: ServerConfig, backend: str) -> str:
     try:
         NussPlan.from_config(cfg)
         return "nuss"
-    except (NotImplementedError, ValueError) as exc:
-        raise NotImplementedError(
-            "no ported backend takes this configuration (the NTT backend "
-            f"is not ported): {exc}") from exc
+    except (NotImplementedError, ValueError):
+        return "ntt"
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,7 @@
 A GGSW ciphertext is [l, k+1, k+1, N]: `level` matrices of k+1 GLWE rows. A
 bootstrap key is one GGSW per LWE key bit, [n, l, k+1, k+1, N] np.uint32
 or np.uint64 (the GLWE key's torus). All rows are assembled with one batched
-multisum.
+multisum. bsk_to_ntt converts a key to the ntt backend's spectra.
 
 Example:
     >>> import numpy as np
@@ -21,6 +21,9 @@ Example:
     >>> StandardBootstrapKey.generate(lsk, gsk64, 4, 2, 0.0,
     ...     EncryptionRandom.new(2, 3)).data.dtype
     dtype('uint64')
+    >>> spectra = bsk_to_ntt(bsk.data, (2013265921, 1811939329), 32)
+    >>> spectra.shape, spectra.dtype          # [n, P, levels, k+1, k+1, N]
+    (torch.Size([3, 2, 2, 2, 2, 16]), torch.int32)
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-from ..torus import UNSIGNED, EncryptionRandom
+from ..math import crt, ntt
+from ..torus import UNSIGNED, EncryptionRandom, as_torus
 from .glwe import GlweSecretKey
 
 
@@ -82,3 +87,36 @@ class StandardBootstrapKey:
         data = assemble_ggsw(glwe_key, base_log, level_count, masks, noises,
                              lwe_key.key, device)
         return cls(data=data, base_log=base_log, level_count=level_count)
+
+
+def ggsw_to_ntt(ggsw, primes: tuple[int, ...], bits: int, *,
+                device=None) -> torch.Tensor:
+    """Forward-NTT every polynomial of a GGSW tensor [..., N] (u32 / u64
+    torus) -> [P, ..., N] Montgomery spectra in bit-reversed order, u32
+    words as int32 (values below 2^31). Coefficients are centered (signed)
+    before the residue reduction, which halves the CRT bound
+    (bootstrap/fourier/mod.rs:186 fill_with_forward_fourier). Runs on
+    `device`, else the tensor's own, else the CPU for numpy input."""
+    g = as_torus(ggsw, device, bits)
+    primes = tuple(primes)
+    residues = crt.CrtContext.new(primes, bits).residues_from_torus(g)
+    sp = ntt.make_stacked_plans(g.shape[-1], primes)
+    return ntt.forward_stacked(sp, torch.stack(residues)).to(torch.int32)
+
+
+def bsk_to_ntt(bsk_data, primes: tuple[int, ...], bits: int, *,
+               device=None) -> torch.Tensor:
+    """[n, l, k+1, k+1, N] bootstrap key -> [n, P, l, k+1, k+1, N] int32
+    spectra (concrete_tpu's bsk_to_ntt, byte for byte), the CMux-chain axis
+    leading so each step reads one contiguous slice. Converted on the key's
+    device (see ggsw_to_ntt) in slices of the n axis, so the int64
+    temporaries stay near a few hundred MB."""
+    bsk = as_torus(bsk_data, device, bits)
+    n_lwe, per_row = bsk.shape[0], bsk[0].numel()
+    out = torch.empty((n_lwe, len(primes)) + tuple(bsk.shape[1:]),
+                      dtype=torch.int32, device=bsk.device)
+    step = max(1, (1 << 22) // (len(primes) * per_row))
+    for i0 in range(0, n_lwe, step):
+        out[i0:i0 + step] = ggsw_to_ntt(bsk[i0:i0 + step], primes,
+                                        bits).movedim(0, 1)
+    return out

@@ -4,8 +4,8 @@ u64 torus.
 
 Secret keys live on the host as np.uint64. The bootstrapping and
 keyswitching keys keep their coefficient-domain arrays on the host and
-derive their evaluation forms (toeplitz or Nussbaumer rings, int8 limb
-planes) on `device` at first use: the GPU unless the caller asks for the
+derive their evaluation forms (toeplitz or Nussbaumer rings, NTT spectra,
+int8 limb planes) on `device` at first use: the GPU unless the caller asks for the
 CPU. Key generation draws from numpy Generators, not from the JAX package's
 AES-CTR streams (its products run on `device`); keys saved by concrete_tpu
 load here unchanged (`load`).
@@ -34,9 +34,10 @@ import torch
 from .. import npe
 from ..core import bootstrap as bs
 from ..core import bootstrap_mxu as bsx
+from ..core import bootstrap_ntt as bsntt
 from ..core import bootstrap_nuss as bsn
 from ..core import lwe as lwe_ops
-from ..core.ggsw import StandardBootstrapKey
+from ..core.ggsw import StandardBootstrapKey, bsk_to_ntt
 from ..core.glwe import GlweSecretKey
 from ..core.lwe import LweKeyswitchKey, LweSecretKey
 from ..dispersion import Variance
@@ -123,8 +124,8 @@ class RLWESecretKey:
 class LWEBSK:
     """Bootstrapping key (lwe_bsk.rs:20): GGSW encryptions of the input key
     bits under the RLWE key, [n, l, k+1, k+1, N] np.uint64. The rings of the
-    mxu (N <= 4096) or nuss (N = 8192, 16384) backend are built on `device`
-    at first use."""
+    mxu (N <= 4096) or nuss (N = 8192, 16384) backend, or the spectra of the
+    ntt backend, are built on `device` at first use."""
 
     cfg: bs.ServerConfig
     variance: float
@@ -133,15 +134,17 @@ class LWEBSK:
     backend: str = "auto"
     _bsk_mxu: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     _bsk_nuss: torch.Tensor | None = dataclasses.field(default=None, repr=False)
+    _bsk_ntt: torch.Tensor | None = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
     def resolved_backend(self) -> str:
-        """"mxu" or "nuss" (bootstrap_nuss.resolve_backend): `backend` when
-        named, else "mxu" up to N = 4096 and "nuss" above; raises
-        NotImplementedError where neither takes the configuration (the NTT
-        backend is not ported yet)."""
+        """"mxu", "nuss" or "ntt" (bootstrap_nuss.resolve_backend): `backend`
+        when named, else "mxu" up to N = 4096, "nuss" above and "ntt" where
+        neither takes the configuration. On the u64 torus the ntt backend
+        needs three or more CRT primes, so its CMux step is the torch
+        composition, never the two-prime kernel K9."""
         return bsn.resolve_backend(self.cfg, self.backend)
 
     def with_fast_mode(self, *, limb_drop: int = 2,
@@ -149,14 +152,14 @@ class LWEBSK:
         """Reduced-precision evaluation twin over the same key material
         (concrete_tpu's LWEBSK.with_fast_mode): ``limb_drop`` of the 8
         bootstrap-key byte limbs are dropped on the mxu backend (the nuss
-        backend is exact and ignores it, as in concrete_tpu), ``levels``
+        and ntt backends are exact and ignore it, as in concrete_tpu), ``levels``
         keeps only the most significant PBS decomposition levels. The extra
         noise is tracked by bootstrap_output_variance. Ciphertexts and
         client keys are unchanged."""
         cfg = self.cfg.with_fast_mode(limb_drop=limb_drop, levels=levels)
         return dataclasses.replace(
             self, cfg=cfg, coefficient_bsk=self.coefficient_bsk[:, :cfg.pbs_level],
-            _bsk_mxu=None, _bsk_nuss=None)
+            _bsk_mxu=None, _bsk_nuss=None, _bsk_ntt=None)
 
     def bootstrap_output_variance(self, lwe_dimension: int) -> float:
         """PBS output variance, with the reduced-precision term in fast
@@ -191,13 +194,26 @@ class LWEBSK:
                                              device=self.device)
         return self._bsk_nuss
 
+    @property
+    def bsk_ntt(self) -> torch.Tensor:
+        """NTT spectra [n, P, l, k+1, k+1, N] int32, converted on the device
+        (ggsw.bsk_to_ntt)."""
+        if self._bsk_ntt is None:
+            self._bsk_ntt = bsk_to_ntt(self.coefficient_bsk,
+                                       self.cfg.primes, BITS,
+                                       device=self.device)
+        return self._bsk_ntt
+
     def run_bootstrap(self, accumulator, cts) -> torch.Tensor:
         """PBS of `cts` [..., n+1] against `accumulator` [k+1, N] (u64 numpy
         or int64 tensors) -> [..., k*N+1] int64 on the device."""
         acc = as_torus(accumulator, self.device, BITS)
         cts = as_torus(cts, self.device, BITS)
-        if self.resolved_backend() == "nuss":
+        backend = self.resolved_backend()
+        if backend == "nuss":
             return bsn.bootstrap_nuss(self.cfg, self.bsk_nuss, acc, cts)
+        if backend == "ntt":
+            return bsntt.bootstrap(self.cfg, self.bsk_ntt, acc, cts)
         return bsx.bootstrap_mxu(self.cfg, self.bsk_mxu, acc, cts)
 
     def run_bootstrap_many(self, accumulator, cts,
@@ -206,9 +222,13 @@ class LWEBSK:
         [2^lcl, ..., k*N+1] int64 on the device."""
         acc = as_torus(accumulator, self.device, BITS)
         cts = as_torus(cts, self.device, BITS)
-        if self.resolved_backend() == "nuss":
+        backend = self.resolved_backend()
+        if backend == "nuss":
             return bsn.bootstrap_many_lut_nuss(self.cfg, self.bsk_nuss, acc,
                                                cts, lut_count_log)
+        if backend == "ntt":
+            return bsntt.bootstrap_many_lut(self.cfg, self.bsk_ntt, acc, cts,
+                                            lut_count_log)
         return bsx.bootstrap_many_lut_mxu(self.cfg, self.bsk_mxu, acc, cts,
                                           lut_count_log)
 

@@ -1,7 +1,7 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Each source under ``csrc/`` (``mxu_kernels.cu``: K1-K4; ``nuss_kernels.cu``:
-K5-K7) is compiled by ``nvcc`` for Hopper (sm_90a) into its own shared
+K5-K7; ``fused_kernels.cu``: K8; ``ntt_kernels.cu``: K9) is compiled by ``nvcc`` for Hopper (sm_90a) into its own shared
 library with a plain C interface, loaded with ctypes. The builds run at
 first use, all sources at once (one ``nvcc`` each, in parallel), in
 ``concrete_tpu_torch/_build/``, and again whenever a source or the flags
@@ -12,7 +12,7 @@ Each C entry point launches one kernel on the stream it is given and
 returns a CUDA error code; :func:`launch` raises when that is not 0.
 
     >>> sorted(SOURCES), len(_SIGNATURES)
-    (['mxu_kernels', 'nuss_kernels'], 8)
+    (['fused_kernels', 'mxu_kernels', 'ntt_kernels', 'nuss_kernels'], 10)
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu"
-           for name in ("mxu_kernels", "nuss_kernels")}
+           for name in ("mxu_kernels", "nuss_kernels", "fused_kernels",
+                        "ntt_kernels")}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -44,6 +45,8 @@ _SIGNATURES = {
     "ctt_recombine_inv64": ("nuss_kernels", 2, 6),
     "ctt_rotdig_fwd_nuss": ("nuss_kernels", 3, 7),
     "ctt_rotdig_fwd_nuss64": ("nuss_kernels", 3, 7),
+    "ctt_fused_cmux": ("fused_kernels", 4, 6),
+    "ctt_ntt_cmux": ("ntt_kernels", 6, 6),
 }
 
 

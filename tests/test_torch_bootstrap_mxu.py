@@ -142,7 +142,8 @@ def test_wrappers_take_plain_versions_on_cpu():
     assert acc_new is acc_in and torch.equal(acc_in, acc_want)
     assert d8_new is d8 and torch.equal(d8, d8_want)
     assert bsx_t.launch_counts() == {"build_tables": 0, "rotdig": 0,
-                                     "rotdig_recombine": 0, "rotdig64": 0}
+                                     "rotdig_recombine": 0, "rotdig64": 0,
+                                     "fused_external_product_acc": 0}
     with pytest.raises(TypeError):
         bsx_t.rotdig(plan, acc, a_hat.to(torch.int64))
     with pytest.raises(ValueError):

@@ -1,0 +1,157 @@
+"""The plain versions of K9 (the NTT-domain CMux step,
+core/bootstrap_ntt.ntt_cmux) and K8 (the fused toeplitz CMux accumulation,
+core/bootstrap_mxu.fused_external_product_acc) against the
+JAX package's Pallas kernels run in interpret mode, at the shapes of
+tests/test_bootstrap_mxu.py, and the fused blind rotation on the CPU.
+Tolerance 0: every step is integer arithmetic mod 2^32."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from concrete_tpu.core import bootstrap as bs_jax
+from concrete_tpu.core import bootstrap_mxu as bsx_jax
+from concrete_tpu.ops import fused_cmux as fc_jax
+from concrete_tpu.ops import pallas_cmux
+from concrete_tpu_torch import torus
+from concrete_tpu_torch.core import bootstrap as bs_t
+from concrete_tpu_torch.core import bootstrap_mxu as bsx_t
+from concrete_tpu_torch.core import bootstrap_ntt as bsntt_t
+from concrete_tpu_torch.core import lwe as lwe_t
+
+
+def _cfgs(k, N, bl, lv, drop=0, bits=32, n=4):
+    kw = dict(lwe_dimension=n, glwe_dimension=k, polynomial_size=N,
+              pbs_base_log=bl, pbs_level=lv, ks_base_log=4, ks_level=3,
+              mxu_limb_drop=drop, bits=bits)
+    return bs_jax.ServerConfig(**kw), bs_t.ServerConfig(**kw)
+
+
+def _u32(rng, shape):
+    return rng.integers(0, 1 << 32, size=shape, dtype=np.uint32)
+
+
+# -- K9 ---------------------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_ntt_cmux_plain_matches_pallas_kernel(k):
+    """tests/test_bootstrap_mxu.py's K9 case (N = 64, B = 8, base_log 6,
+    level 2) and a k = 2 twin: the port's plain step and its wrapper on
+    CPU tensors equal make_cmux_kernel in interpret mode."""
+    cj, ct = _cfgs(k, 64, 6, 2)
+    assert len(ct.primes) == 2 and bsntt_t.kernel_applies(ct)
+    rng = np.random.default_rng(11 + k)
+    b, ks1, N, l = 8, k + 1, 64, 2
+    acc = _u32(rng, (ks1, b, N))
+    a_hat = rng.integers(0, 2 * N, size=b, dtype=np.int32)
+    a_hat[:3] = [0, N, 2 * N - 1]
+    ggsw = np.stack([rng.integers(0, p, size=(l, ks1, ks1, N), dtype=np.uint32)
+                     for p in ct.primes])
+    with jax.enable_x64(False):
+        kern = pallas_cmux.make_cmux_kernel(cj, tile_b=b, interpret=True)
+        want = np.asarray(kern(jnp.asarray(acc), jnp.asarray(a_hat),
+                               jnp.asarray(ggsw)))
+    acc_t, a_t = torus.from_numpy(acc), torch.from_numpy(a_hat)
+    g_t = torch.from_numpy(ggsw.view(np.int32))
+    np.testing.assert_array_equal(
+        torus.to_numpy(bsntt_t.ntt_cmux_plain(ct, acc_t, a_t, g_t)), want)
+    bsntt_t.reset_launch_counts()
+    out = torch.empty_like(acc_t)
+    assert bsntt_t.ntt_cmux(ct, acc_t, a_t, g_t, out=out) is out
+    np.testing.assert_array_equal(torus.to_numpy(out), want)
+    assert bsntt_t.ntt_cmux.launches == 0
+
+
+def test_ntt_cmux_refusals():
+    _, ct = _cfgs(1, 64, 6, 2)
+    acc = torch.zeros((2, 3, 64), dtype=torch.int32)
+    a_hat = torch.zeros(3, dtype=torch.int32)
+    g = torch.zeros((2, 2, 2, 2, 64), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        bsntt_t.ntt_cmux(ct, acc.to(torch.int64), a_hat, g)
+    with pytest.raises(ValueError):
+        bsntt_t.ntt_cmux(ct, acc, a_hat[:2], g)
+    with pytest.raises(ValueError):
+        bsntt_t.ntt_cmux(ct, acc, a_hat, g[:, :1])
+    with pytest.raises(ValueError):
+        bsntt_t.ntt_cmux(ct, acc.transpose(1, 2).contiguous().transpose(1, 2),
+                         a_hat, g)
+    _, u64 = _cfgs(1, 64, 7, 3, bits=64)
+    assert len(u64.primes) == 3 and not bsntt_t.kernel_applies(u64)
+    assert [bsntt_t.cols_per_block(ks1, n) for ks1, n in
+            [(5, 256), (2, 8192), (2, 16384), (5, 8192), (3, 16384)]] == \
+        [5, 2, 1, 3, 1]
+
+
+# -- K8 ---------------------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("k,l,bl,drop", [(1, 3, 7, 0), (2, 2, 8, 0), (1, 2, 7, 1)])
+def test_fused_plain_matches_pallas_kernel(k, l, bl, drop):
+    """tests/test_bootstrap_mxu.py's three K8 cases ((2, 2, 8, 0) splits
+    each digit into two int8 chunks): the port's plain version and its
+    wrapper on CPU tensors equal make_fused_cmux in interpret mode."""
+    cj, ct = _cfgs(k, 64, bl, l, drop)
+    plan_j, plan_t = bsx_jax.MxuPlan.from_config(cj), bsx_t.MxuPlan.from_config(ct)
+    assert plan_t.n_sub == (2 if bl == 8 else 1)
+    rng = np.random.default_rng(k * 10 + l)
+    R, ks1, N, b = plan_t.row_blocks, plan_t.glwe_size, 64, 8
+    rings = _u32(rng, (R, ks1, 2 * N))
+    glwe = _u32(rng, (ks1, b, N))
+    acc = _u32(rng, (ks1, b, N))
+    d8 = np.array(bsx_jax._digit_matrix(plan_j, jnp.asarray(glwe)))
+    with jax.enable_x64(False):
+        want = np.asarray(fc_jax.fused_external_product_acc(
+            cj, plan_j, jnp.asarray(acc), jnp.asarray(d8), jnp.asarray(rings),
+            interpret=True))
+    acc_t, d8_t, rings_t = (torus.from_numpy(acc), torch.from_numpy(d8),
+                            torus.from_numpy(rings))
+    np.testing.assert_array_equal(torus.to_numpy(
+        bsx_t.fused_external_product_acc_plain(plan_t, acc_t, d8_t, rings_t)), want)
+    bsx_t.reset_launch_counts()
+    acc_in = acc_t.clone()
+    assert bsx_t.fused_external_product_acc(plan_t, acc_in, d8_t, rings_t,
+                                            out=acc_in) is acc_in
+    np.testing.assert_array_equal(torus.to_numpy(acc_in), want)
+    assert bsx_t.fused_external_product_acc.launches == 0
+
+
+@pytest.mark.parametrize("k,N,bl,lv,drop", [(1, 64, 7, 3, 0), (2, 64, 8, 2, 1)])
+def test_fused_blind_rotation_equals_unfused(k, N, bl, lv, drop):
+    """blind_rotate_mxu(fused=True) on the CPU (K2's and K8's plain
+    versions) equals the default loop, and the fused keyword reaches the
+    PBS and gate pipelines."""
+    _, ct = _cfgs(k, N, bl, lv, drop, n=5)
+    rng = np.random.default_rng(N + k)
+    bsk = _u32(rng, (5, lv, k + 1, k + 1, N))
+    rings = torus.from_numpy(bsx_t.bsk_to_mxu(bsk, ct))
+    lut = torus.from_numpy(_u32(rng, (k + 1, N)))
+    lwe = torus.from_numpy(_u32(rng, (6, 6)))
+    want = bsx_t.blind_rotate_mxu(ct, rings, lut, lwe)
+    assert torch.equal(bsx_t.blind_rotate_mxu(ct, rings, lut, lwe, fused=True), want)
+    assert torch.equal(bsx_t.bootstrap_many_lut_mxu(ct, rings, lut, lwe, 1, fused=True),
+                       bsx_t.bootstrap_many_lut_mxu(ct, rings, lut, lwe, 1))
+    ksk = _u32(rng, (k * N, ct.ks_level, 6))
+    ksk8 = torch.from_numpy(lwe_t.ksk_to_limbs(ksk))
+    assert torch.equal(
+        bsx_t.bootstrap_keyswitch_mxu(ct, rings, ksk8, lut, lwe, fused=True),
+        bsx_t.bootstrap_keyswitch_mxu(ct, rings, ksk8, lut, lwe))
+
+
+def test_fused_refuses_u64():
+    _, ct = _cfgs(1, 64, 7, 3, bits=64)
+    plan = bsx_t.MxuPlan.from_config(ct)
+    rng = np.random.default_rng(3)
+    bsk = rng.integers(0, 1 << 63, size=(4, 3, 2, 2, 64), dtype=np.uint64)
+    rings = torus.from_numpy(bsx_t.bsk_to_mxu(bsk, ct))
+    lut = torch.zeros((2, 64), dtype=torch.int64)
+    lwe = torch.zeros((3, 5), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        bsx_t.blind_rotate_mxu(ct, rings, lut, lwe, fused=True)
+    with pytest.raises(ValueError):
+        bsx_t.fused_external_product_acc(
+            plan, torch.zeros((2, 3, 64), dtype=torch.int64),
+            torch.zeros((3, plan.row_blocks * 64), dtype=torch.int8), rings[0])

@@ -17,7 +17,9 @@ import torch
 from concrete_tpu_torch import boolean, torus
 from concrete_tpu_torch.core import bootstrap as bs
 from concrete_tpu_torch.core import bootstrap_mxu as bsx
+from concrete_tpu_torch.core import bootstrap_ntt as bsntt
 from concrete_tpu_torch.core import bootstrap_nuss as bsn
+from concrete_tpu_torch.core.ggsw import bsk_to_ntt
 from concrete_tpu_torch.dispersion import StandardDev
 from concrete_tpu_torch.math import polynomial
 from concrete_tpu_torch.ops import _cuda
@@ -340,3 +342,117 @@ def test_nuss_gates_on_gpu_match_cpu(dev):
     got = sks.and_(ca, cb)
     assert torch.equal(got.cpu(), sks.to("cpu").and_(ca, cb))
     np.testing.assert_array_equal(cks.decrypt(got), a & b)
+
+
+# -- the exact-NTT backend (K9) and the fused toeplitz step (K8) ----------------
+
+
+def _ntt_cfg(k, n, bl=7, lv=2, bits=32, n_lwe=4):
+    return bs.ServerConfig(lwe_dimension=n_lwe, glwe_dimension=k,
+                           polynomial_size=n, pbs_base_log=bl, pbs_level=lv,
+                           ks_base_log=2, ks_level=3, bits=bits)
+
+
+@pytest.mark.parametrize("n", [16, 256, 512, 1024, 8192, 16384])
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_ntt_cmux_kernel(dev, k, n):
+    """K9 at every shared-memory layout: all k+1 columns in one block (up
+    to N = 4096, and N = 8192 for k <= 2) and the columns split over
+    blocks (N = 8192 with k = 4, N = 16384), dynamic shared memory above
+    48 KB, and fewer butterflies than threads (N = 16); degrees 0, N, 2N-1
+    and 2N."""
+    cfg = _ntt_cfg(k, n)
+    assert bsntt.kernel_applies(cfg)
+    rng = np.random.default_rng(k * n)
+    b = 5 if n <= 1024 else 2
+    acc = _u32(rng, (k + 1, b, n), dev)
+    a_hat = _degrees(rng, n, b, dev)
+    ggsw = torch.from_numpy(np.stack([
+        rng.integers(0, p, size=(2, k + 1, k + 1, n), dtype=np.uint32)
+        for p in cfg.primes]).view(np.int32)).to(dev)
+    before = bsntt.ntt_cmux.launches
+    got = bsntt.ntt_cmux(cfg, acc, a_hat, ggsw)
+    assert bsntt.ntt_cmux.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, bsntt.ntt_cmux_plain(cfg, acc, a_hat, ggsw))
+
+
+@pytest.mark.parametrize("bl,drop", [(7, 0), (7, 1), (8, 0), (8, 1)])
+def test_fused_cmux_kernel(dev, bl, drop):
+    """K8 for limb_drop 0 and 1 and n_sub 1 (base_log 7) and 2 (base_log
+    8), with a ragged row tile (B = 70), updated in place."""
+    cfg = dataclasses.replace(_ntt_cfg(2, 256, bl, 2), mxu_limb_drop=drop)
+    plan = bsx.MxuPlan.from_config(cfg)
+    assert plan.n_sub == (1 if bl == 7 else 2)
+    rng = np.random.default_rng(bl + drop)
+    b, n = 70, 256
+    acc = _u32(rng, (3, b, n), dev)
+    d8 = torch.from_numpy(rng.integers(-128, 128, size=(b, plan.row_blocks * n),
+                                       dtype=np.int8)).to(dev)
+    rings = _u32(rng, (plan.row_blocks, 3, 2 * n), dev)
+    want = bsx.fused_external_product_acc_plain(plan, acc, d8, rings)
+    before = bsx.fused_external_product_acc.launches
+    got = bsx.fused_external_product_acc(plan, acc, d8, rings, out=acc)
+    assert bsx.fused_external_product_acc.launches == before + 1
+    torch.cuda.synchronize()
+    assert got is acc and torch.equal(acc, want)
+
+
+@pytest.mark.parametrize("k,n,bits", [(1, 256, 32), (4, 256, 32), (1, 512, 64)])
+def test_ntt_blind_rotation_on_gpu_matches_cpu(dev, k, n, bits):
+    """The ntt blind rotation on the card (K9 every step on the u32 torus,
+    the torch composition on u64's three primes) against the CPU, key
+    conversion on the card included."""
+    cfg = _ntt_cfg(k, n, 7, 3 if bits == 64 else 2, bits, n_lwe=6)
+    rng = np.random.default_rng(k + n + bits)
+    dt = np.uint32 if bits == 32 else np.uint64
+    bsk = rng.integers(0, np.iinfo(dt).max, size=(6, cfg.pbs_level, k + 1, k + 1, n),
+                       dtype=dt, endpoint=True)
+    spectra = bsk_to_ntt(bsk, cfg.primes, bits)
+    assert torch.equal(bsk_to_ntt(bsk, cfg.primes, bits, device=dev).cpu(), spectra)
+    lut = torus.from_numpy(rng.integers(0, np.iinfo(dt).max, size=(k + 1, n),
+                                        dtype=dt, endpoint=True))
+    lwe = torus.from_numpy(rng.integers(0, np.iinfo(dt).max, size=(40, 7),
+                                        dtype=dt, endpoint=True))
+    want = bsntt.blind_rotate(cfg, spectra, lut, lwe)
+    before = bsntt.ntt_cmux.launches
+    got = bsntt.blind_rotate(cfg, spectra.to(dev), lut.to(dev), lwe.to(dev))
+    assert bsntt.ntt_cmux.launches == before + (6 if bits == 32 else 0)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("k,n,bl,l,drop", [(1, 256, 7, 3, 0), (2, 512, 8, 2, 1)])
+def test_fused_blind_rotation_on_gpu_matches_cpu(dev, k, n, bl, l, drop):
+    cfg = dataclasses.replace(_ntt_cfg(k, n, bl, l, n_lwe=6), mxu_limb_drop=drop)
+    rng = np.random.default_rng(n + drop)
+    bsk = rng.integers(0, 1 << 32, size=(6, l, k + 1, k + 1, n), dtype=np.uint32)
+    rings = torus.from_numpy(bsx.bsk_to_mxu(bsk, cfg))
+    lut = _u32(rng, (k + 1, n), "cpu")
+    lwe = _u32(rng, (70, 7), "cpu")
+    want = bsx.blind_rotate_mxu(cfg, rings, lut, lwe)
+    before = bsx.fused_external_product_acc.launches
+    got = bsx.blind_rotate_mxu(cfg, rings.to(dev), lut.to(dev), lwe.to(dev),
+                               fused=True)
+    assert bsx.fused_external_product_acc.launches == before + 6
+    assert torch.equal(got.cpu(), want)
+
+
+def test_ntt_gates_on_gpu_match_cpu(dev):
+    tiny = BooleanParameters(16, 1, 256, StandardDev(2.0 ** -25),
+                             StandardDev(2.0 ** -30), 7, 2, 4, 3)
+    cks, sks = boolean.gen_keys(tiny, secret_seed=1, mask_seed=2, noise_seed=3,
+                                device=dev)
+    ntt = dataclasses.replace(sks, backend="ntt")
+    cpu = ntt.to("cpu")
+    rng = np.random.default_rng(4)
+    a, b, c = (rng.integers(0, 2, size=40).astype(bool) for _ in range(3))
+    ca, cb, cc = (cks.encrypt(v, mask_seed=5 + i, noise_seed=9 + i)
+                  for i, v in enumerate((a, b, c)))
+    for gate, want in [("and_", a & b), ("xor", a ^ b)]:
+        got = getattr(ntt, gate)(ca, cb)
+        assert torch.equal(got.cpu(), getattr(cpu, gate)(ca, cb))
+        assert torch.equal(got, getattr(sks, gate)(ca, cb))
+        np.testing.assert_array_equal(cks.decrypt(got), want)
+    got = ntt.mux(ca, cb, cc)
+    assert torch.equal(got.cpu(), cpu.mux(ca, cb, cc))
+    np.testing.assert_array_equal(cks.decrypt(got), np.where(a, b, c))
