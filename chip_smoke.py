@@ -10,8 +10,9 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           (concrete_tpu_torch/_build/).
   A       each hand-written kernel against its plain PyTorch version on the
           card, at the shapes of the main paths, bit for bit, with both
-          device times (CUDA graph replay between CUDA events) and the
-          least time the card could take for the same work.
+          device times (CUDA graph replay between CUDA events), the least
+          time the card could take for the same work and the share of it
+          reached (K8 also its T MAC/s and share of the int8 tensor rate).
   B       a boolean-gate server at full width (u32 torus): for TPU128,
           DEFAULT and TFHE_LIB parameters, key generation from fixed seeds,
           warmup of the batch tiers, then requests of mixed sizes through
@@ -143,11 +144,14 @@ PIPE_LANES, ISSUE_LANES = 64, 128
 # ALU-only): a Montgomery product is IMAD.WIDE a*b, IMAD m = lo*n' and
 # IMAD.WIDE m*p + a*b (whose high word is the REDC sum), then t - p and an
 # unsigned min; a modular add or subtract is the sum, the sum minus p or
-# plus p, and an unsigned min; the Garner step of one coefficient is a
+# plus p, and an unsigned min; two MAC terms share one lazy REDC: a*b and
+# IMAD.WIDE c*d + a*b (their sum < 2p^2), the REDC's two multiplies and a
+# 64-bit add into the running sum, whose one reduction per output is a
+# Montgomery product's cost; the Garner step of one coefficient is a
 # modular subtract, a reduction of x1 mod p1 (add, min), a Montgomery
 # product, x1 + p0*x2 (one IMAD), the compare with ceil(M/2) (two), its
 # conditional subtract and the add into acc
-MONT, MODADD, GARNER = (3, 1, 1), (0, 2, 1), (4, 6, 5)
+MONT, MODADD, MAC_PAIR, GARNER = (3, 1, 1), (0, 2, 1), (4, 2, 0), (4, 6, 5)
 # phase C: examples/int4_lut.py at the JAX suite's batch
 INT4 = {"lwe": hl.LWE128_630, "rlwe": hl.RLWE128_1024_1, "pbs": (7, 3),
         "ks": (2, 8), "batch": 2048}
@@ -301,17 +305,19 @@ def ntt_cmux_work(cfg, b: int) -> tuple[int, tuple[int, int, int]]:
     """(Montgomery products, instructions as (multiplies, adds, ALU-only))
     of one K9 step at batch b: per row, l*(k+1) forward NTTs per prime
     (twist + N/2 log2 N butterflies, each a product, an add and a
-    subtract), the MAC of each against k+1 key spectra, (k+1) inverse NTTs
-    per prime (butterflies + untwist) and the Garner recombination. The
-    digit extraction and rotation are not counted."""
+    subtract), the MAC of each against k+1 key spectra (terms in pairs,
+    one reduction per output), (k+1) inverse NTTs per prime (butterflies
+    + untwist) and the Garner recombination. The digit extraction and
+    rotation are not counted."""
     n, ks1, lv, p = cfg.polynomial_size, cfg.glwe_size, cfg.pbs_level, 2
     butterflies = n // 2 * (n.bit_length() - 1)
     fwd, inv = b * ks1 * lv * p, b * ks1 * p
     macs = fwd * ks1 * n
     garner = b * ks1 * n
     products = (fwd + inv) * (n + butterflies) + macs + garner
-    count = {MONT: (fwd + inv) * (n + butterflies) + macs,
-             MODADD: (fwd + inv) * 2 * butterflies + macs, GARNER: garner}
+    count = {MONT: (fwd + inv) * (n + butterflies) + inv * n,
+             MODADD: (fwd + inv) * 2 * butterflies,
+             MAC_PAIR: macs // 2, GARNER: garner}
     return products, tuple(sum(c * op[i] for op, c in count.items())
                            for i in range(3))
 
@@ -379,7 +385,7 @@ def fused_kernel_cases(dev, rng, u32):
             lambda p=plan, acc=acc, d8=d8, rg=rings:
                 bsx.fused_external_product_acc_plain(p, acc, d8, rg),
             (acc, d8, rings),
-            {"op_s": 2 * macs / INT8_TENSOR_OPS_PER_S,
+            {"op_s": 2 * macs / INT8_TENSOR_OPS_PER_S, "macs": macs,
              "unfused": lambda p=plan, acc=acc, d8=d8, rg=rings, rhs=rhs, s=s:
                  acc + bsx._toeplitz_matmul(
                      p, d8, bsx.build_tables(rg, p.polynomial_size, p.limb_drop,
@@ -484,7 +490,13 @@ def phase_a(dev, card):
         ms, plain_ms = time_ms(run), time_ms(plain)
         bound, bound_by = bound_ms(inputs, got if isinstance(got, tuple)
                                    else (got,), extra.get("op_s"))
-        more = {}
+        # the achieved share of the bound; K8's MAC rate against the int8
+        # tensor rate (2 operations a MAC)
+        more = {"bound_share": bound / ms}
+        if "macs" in extra:
+            more["t_mac_per_s"] = extra["macs"] / (ms * 1e-3) / 1e12
+            more["int8_tensor_share"] = (2 * extra["macs"] / (ms * 1e-3)
+                                         / INT8_TENSOR_OPS_PER_S)
         if "unfused" in extra:
             more["unfused_step_ms"] = time_ms(extra["unfused"])
         if "mont_products" in extra:

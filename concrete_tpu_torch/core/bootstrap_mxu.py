@@ -468,7 +468,7 @@ def rotdig_recombine(plan: MxuPlan, s: torch.Tensor, acc: torch.Tensor,
 
 rotdig_recombine.launches = 0
 
-FUSED_TILE = 64  # K8's row, column and depth tile
+FUSED_TILE = 64  # K8's column and depth tile (its row tile is 128)
 
 
 def fused_external_product_acc_plain(plan: MxuPlan, acc: torch.Tensor,
@@ -487,7 +487,8 @@ def fused_external_product_acc(plan: MxuPlan, acc: torch.Tensor,
     """K8, the toeplitz CMux accumulation in one kernel
     (fused_external_product_acc_plain) on the u32 torus, limb_drop 0-2: the
     kernel (csrc/fused_kernels.cu) builds the table tiles it needs in shared
-    memory from a window of the ring and never writes T to device memory.
+    memory from a window of the ring, never writes T to device memory, and
+    multiplies them on the int8 tensor cores (mma.sync m16n8k32).
     `out` may be `acc` itself: each output word is read and written by one
     thread, so the update is then made in place.
 

@@ -14,10 +14,11 @@ CUDA kernel on the card (K9, `ntt_cmux`, csrc/ntt_kernels.cu): the rotation,
 the signed gadget digits, per prime the forward NTT of every digit
 polynomial, the pointwise MAC against the GGSW spectra, the inverse NTT, the
 two-prime Garner recombination and the accumulate, every transform in
-shared memory. Elsewhere (the u64 torus has three or more primes) the step
-is the stacked torch composition, `ntt_cmux_plain`, as the JAX package runs
-its XLA form there. On CPU tensors `ntt_cmux` runs the plain version;
-`ntt_cmux.launches` counts the kernel launches.
+shared memory, several batch rows a block (`block_geometry`). Elsewhere
+(the u64 torus has three or more primes) the step is the stacked torch
+composition, `ntt_cmux_plain`, as the JAX package runs its XLA form there.
+On CPU tensors `ntt_cmux` runs the plain version; `ntt_cmux.launches`
+counts the kernel launches.
 
 Example (one step on the CPU, where the plain version runs):
     >>> import torch
@@ -113,6 +114,12 @@ def cmux(cfg: ServerConfig, ggsw_ntt: torch.Tensor, ct0: torch.Tensor,
 # guide), in 32-bit words
 _SMEM_WORDS = 232448 // 4
 N_MAX = 16384
+# the kernel's limits: output polynomials and batch rows one block takes
+COLS_MAX, ROWS_MAX = 5, 4
+# shared memory the rows of one block may fill together when every digit
+# polynomial fits, in words: 72 KB, which gives 2 rows at TPU128 and 1 at
+# DEFAULT and TFHE_LIB, the fastest of 1-4 on the H100 (PERF.md, PR 5)
+ROWS_SMEM_WORDS = 72 * 1024 // 4
 
 
 def kernel_applies(cfg: ServerConfig) -> bool:
@@ -120,13 +127,41 @@ def kernel_applies(cfg: ServerConfig) -> bool:
     return cfg.bits == 32 and len(cfg.primes) == 2
 
 
+def _padded(n: int) -> int:
+    """Words of one polynomial in K9's shared memory: a pad word after
+    every 8 keeps the radix passes' strided exchanges on distinct banks."""
+    return n + n // 8
+
+
 def cols_per_block(ks1: int, n: int) -> int:
-    """Output polynomials one block accumulates: its shared memory holds a
-    work polynomial and two primes' spectra per column, (2*cols + 1)*N
-    words. All k+1 fit up to N = 4096 (and at N = 8192 for k <= 2); beyond,
-    the columns split over several blocks per row, each redoing the forward
-    transforms of the digits."""
-    return max(1, min(ks1, (_SMEM_WORDS // n - 1) // 2))
+    """Output polynomials one block accumulates: its shared memory holds
+    two primes' spectra per column and at least one digit polynomial,
+    (2*cols + 1) padded polynomials, and the kernel takes at most
+    COLS_MAX. All k+1 fit up to N = 4096 when k+1 <= 5 (and at N = 8192
+    for k = 1); beyond, the columns split over several blocks per row, each
+    redoing the forward transforms of the digits."""
+    return max(1, min(ks1, COLS_MAX, (_SMEM_WORDS // _padded(n) - 1) // 2))
+
+
+def block_geometry(ks1: int, n: int, level: int,
+                   batch: int) -> tuple[int, int, int]:
+    """(cols, group, rows) of K9's blocks: `cols` output polynomials, the
+    digit polynomials transformed `group` at a time (all 2*l*(k+1) of a row
+    where they fit beside its column spectra, else as many as fit), and
+    `rows` batch rows per block, as many as ROWS_SMEM_WORDS holds when
+    every digit polynomial fits (at most ROWS_MAX and the batch), else 1.
+
+    >>> [block_geometry(k1, n, l, 2048) for k1, n, l in
+    ...  [(5, 256, 2), (3, 512, 2), (2, 1024, 3), (2, 8192, 3)]]
+    [(5, 20, 2), (3, 12, 1), (2, 12, 1), (2, 2, 1)]
+    """
+    cols = cols_per_block(ks1, n)
+    digits = 2 * level * ks1
+    per_row = (2 * cols + digits) * _padded(n)
+    if per_row > _SMEM_WORDS:
+        return cols, _SMEM_WORDS // _padded(n) - 2 * cols, 1
+    return cols, digits, max(1, min(ROWS_MAX, batch,
+                                    ROWS_SMEM_WORDS // per_row))
 
 
 def ntt_cmux_plain(cfg: ServerConfig, acc: torch.Tensor, a_hat: torch.Tensor,
@@ -141,14 +176,17 @@ def ntt_cmux_plain(cfg: ServerConfig, acc: torch.Tensor, a_hat: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _host_tables(n: int, primes: tuple) -> tuple[np.ndarray, np.ndarray]:
-    """The kernel's constants: tables [4, 2, N] u32 words as int32 (twist,
-    untwist, forward twiddles, inverse twiddles; stage s's twiddles at
+    """The kernel's constants: tables [4, 2, N] u32 words as int32 (twist
+    psi^i R^2; untwist psi^-i N^-1 R, which restores the R that the MAC's
+    64-bit REDC divides out; forward and inverse twiddles, stage s's at
     offset N - (N >> s)) and the Garner constants [8] (p0, p1, n'0, n'1,
     inv(p0)*R mod p1, the mixed-radix digits of ceil(M/2), M mod 2^32)."""
     plans = [ntt.make_plan(n, p) for p in primes]
     tables = np.zeros((4, 2, n), dtype=np.uint32)
     for pi, pl in enumerate(plans):
-        tables[0, pi], tables[1, pi] = pl.twist_fwd, pl.untwist_inv
+        r = (1 << 32) % pl.ctx.p
+        tables[0, pi] = pl.twist_fwd
+        tables[1, pi] = pl.untwist_inv.astype(np.uint64) * r % pl.ctx.p
         tables[2, pi, :n - 1] = np.concatenate(pl.w_fwd)
         tables[3, pi, :n - 1] = np.concatenate(pl.w_inv)
     cc = crt.CrtContext.new(primes, 32)
@@ -202,7 +240,7 @@ def ntt_cmux(cfg: ServerConfig, acc: torch.Tensor, a_hat: torch.Tensor,
         tables, consts = _device_tables(n, cfg.primes, acc.device)
         _cuda.launch("ctt_ntt_cmux", acc, a_hat, ggsw_i, tables, consts, out,
                      b, ks1, n, cfg.pbs_level, cfg.pbs_base_log,
-                     cols_per_block(ks1, n))
+                     *block_geometry(ks1, n, cfg.pbs_level, b))
         ntt_cmux.launches += 1
     return out
 

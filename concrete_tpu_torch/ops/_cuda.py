@@ -46,7 +46,7 @@ _SIGNATURES = {
     "ctt_rotdig_fwd_nuss": ("nuss_kernels", 3, 7),
     "ctt_rotdig_fwd_nuss64": ("nuss_kernels", 3, 7),
     "ctt_fused_cmux": ("fused_kernels", 4, 6),
-    "ctt_ntt_cmux": ("ntt_kernels", 6, 6),
+    "ctt_ntt_cmux": ("ntt_kernels", 6, 8),
 }
 
 

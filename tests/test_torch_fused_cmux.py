@@ -83,7 +83,65 @@ def test_ntt_cmux_refusals():
     assert len(u64.primes) == 3 and not bsntt_t.kernel_applies(u64)
     assert [bsntt_t.cols_per_block(ks1, n) for ks1, n in
             [(5, 256), (2, 8192), (2, 16384), (5, 8192), (3, 16384)]] == \
-        [5, 2, 1, 3, 1]
+        [5, 2, 1, 2, 1]
+
+
+@pytest.mark.parametrize("preset", ["TPU128", "DEFAULT", "TFHE_LIB"])
+def test_ntt_cmux_host_tables_match_big_integers(preset):
+    """Every word of K9's host tables and constants at a gate preset's N and
+    primes, recomputed with Python integers from the root psi that the
+    twist table carries: twist psi^i R^2, untwist psi^-i N^-1 R (the R the
+    MAC's REDC divides out), stage twiddles omega^(+-j 2^s) R, Garner's
+    constants."""
+    from concrete_tpu_torch.params import (DEFAULT_PARAMETERS,
+                                           TFHE_LIB_PARAMETERS,
+                                           TPU128_PARAMETERS)
+    params = {"TPU128": TPU128_PARAMETERS, "DEFAULT": DEFAULT_PARAMETERS,
+              "TFHE_LIB": TFHE_LIB_PARAMETERS}[preset]
+    cfg = bs_t.ServerConfig.from_boolean_parameters(params)
+    n, primes = cfg.polynomial_size, cfg.primes
+    tables, consts = bsntt_t._host_tables(n, primes)
+    tables = tables.view(np.uint32).astype(object)
+    consts = [int(c) for c in consts.view(np.uint32)]
+    R = 1 << 32
+    for pi, p in enumerate(primes):
+        psi = int(tables[0, pi, 1]) * pow(R * R, -1, p) % p
+        assert pow(psi, n, p) == p - 1
+        omega = psi * psi % p
+        want = np.zeros((4, n), dtype=object)
+        want[0] = [pow(psi, i, p) * R * R % p for i in range(n)]
+        want[1] = [pow(psi, -i, p) * pow(n, -1, p) * R % p for i in range(n)]
+        for s in range(n.bit_length() - 1):
+            for j in range(n >> (s + 1)):
+                want[2, n - (n >> s) + j] = pow(omega, j << s, p) * R % p
+                want[3, n - (n >> s) + j] = pow(omega, -(j << s), p) * R % p
+        assert (tables[:, pi] == want).all()
+        assert consts[pi] == p and consts[2 + pi] == (-pow(p, -1, R)) % R
+    p0, p1 = primes
+    half = -(-(p0 * p1) // 2)
+    assert consts[4] == pow(p0, -1, p1) * R % p1
+    assert (consts[5], consts[6]) == (half % p0, half // p0)
+    assert consts[7] == p0 * p1 % R
+
+
+@pytest.mark.parametrize("n", [16, 64, 256, 1024, 4096, 8192, 16384])
+def test_ntt_cmux_block_geometry_fits(n):
+    """K9's block geometry for every k+1 and level a configuration may
+    take: within the kernel's limits (cols <= 5, rows <= 4 and the batch),
+    a digit group of at least one polynomial and at most all 2*l*(k+1),
+    and shared memory of rows*(2*cols + group) padded polynomials (N + N/8
+    words) within the 227 KB a block may take (less the kernel's 32 static
+    bytes)."""
+    for ks1 in range(2, 9):
+        for level in range(1, 5):
+            for b in (1, 3, 2048):
+                cols, group, rows = bsntt_t.block_geometry(ks1, n, level, b)
+                assert 1 <= cols <= min(ks1, bsntt_t.COLS_MAX)
+                assert 1 <= group <= 2 * level * ks1
+                assert 1 <= rows <= min(b, bsntt_t.ROWS_MAX)
+                assert rows == 1 or group == 2 * level * ks1
+                assert rows * (2 * cols + group) * (n + n // 8) * 4 \
+                    <= 232448 - 32
 
 
 # -- K8 ---------------------------------------------------------------------------------------

@@ -46,8 +46,10 @@ def _u32(rng, shape, dev):
 
 
 def _degrees(rng, n, b, dev):
+    """Random degrees in [0, 2N], the first rows 0, 1, N-1, N, 2N-1, 2N."""
     a = rng.integers(0, 2 * n + 1, size=b).astype(np.int32)
-    a[:min(b, 4)] = [0, n, 2 * n - 1, 2 * n][:min(b, 4)]
+    edges = [0, 1, n - 1, n, 2 * n - 1, 2 * n]
+    a[:min(b, 6)] = edges[:min(b, 6)]
     return torch.from_numpy(a).to(dev)
 
 
@@ -353,49 +355,66 @@ def _ntt_cfg(k, n, bl=7, lv=2, bits=32, n_lwe=4):
                            ks_base_log=2, ks_level=3, bits=bits)
 
 
-@pytest.mark.parametrize("n", [16, 256, 512, 1024, 8192, 16384])
-@pytest.mark.parametrize("k", [1, 2, 4])
-def test_ntt_cmux_kernel(dev, k, n):
-    """K9 at every shared-memory layout: all k+1 columns in one block (up
-    to N = 4096, and N = 8192 for k <= 2) and the columns split over
-    blocks (N = 8192 with k = 4, N = 16384), dynamic shared memory above
-    48 KB, and fewer butterflies than threads (N = 16); degrees 0, N, 2N-1
-    and 2N."""
+# every N of the shared-memory layouts, and batches that are no multiple of
+# the rows a block takes (1, 2, 3 or 4): B = 1, a few rows, 2048 + 3
+NTT_CMUX_SHAPES = [(k, n, b) for n in (16, 256, 512, 1024, 8192, 16384)
+                   for k in (1, 2, 4)
+                   for b in ((1, 7, 2051) if n <= 1024 else (1, 3))]
+
+
+@pytest.mark.parametrize("k,n,b", NTT_CMUX_SHAPES)
+def test_ntt_cmux_kernel(dev, k, n, b):
+    """K9 at every shared-memory layout: every digit polynomial of several
+    rows in one block (up to N = 1024), the digits taken a few at a time
+    (N = 8192), the columns split over blocks (N = 8192 with k = 4, N =
+    16384), fewer butterflies than threads (N = 16); ragged row groups;
+    degrees 0, 1, N-1, N, 2N-1 and 2N; `out` a fresh buffer."""
     cfg = _ntt_cfg(k, n)
     assert bsntt.kernel_applies(cfg)
-    rng = np.random.default_rng(k * n)
-    b = 5 if n <= 1024 else 2
+    rng = np.random.default_rng(k * n + b)
     acc = _u32(rng, (k + 1, b, n), dev)
     a_hat = _degrees(rng, n, b, dev)
     ggsw = torch.from_numpy(np.stack([
         rng.integers(0, p, size=(2, k + 1, k + 1, n), dtype=np.uint32)
         for p in cfg.primes]).view(np.int32)).to(dev)
     before = bsntt.ntt_cmux.launches
-    got = bsntt.ntt_cmux(cfg, acc, a_hat, ggsw)
+    got = bsntt.ntt_cmux(cfg, acc, a_hat, ggsw, out=torch.empty_like(acc))
     assert bsntt.ntt_cmux.launches == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, bsntt.ntt_cmux_plain(cfg, acc, a_hat, ggsw))
 
 
-@pytest.mark.parametrize("bl,drop", [(7, 0), (7, 1), (8, 0), (8, 1)])
-def test_fused_cmux_kernel(dev, bl, drop):
-    """K8 for limb_drop 0 and 1 and n_sub 1 (base_log 7) and 2 (base_log
-    8), with a ragged row tile (B = 70), updated in place."""
-    cfg = dataclasses.replace(_ntt_cfg(2, 256, bl, 2), mxu_limb_drop=drop)
+# (base_log, limb_drop, N, B, in place): n_sub 1 (base_log 7) and 2
+# (base_log 8), limb_drop 0-2 (n_kept 4, 3, 2), N = 64 (the smallest the
+# tile takes) and 256, B = 1, 70 and 2048 + 17 (ragged row tiles)
+FUSED_SHAPES = [(7, 0, 256, 70, True), (7, 1, 256, 70, True),
+                (8, 0, 256, 70, True), (8, 1, 256, 70, True),
+                (7, 2, 256, 70, False), (8, 2, 64, 70, True),
+                (7, 0, 64, 1, False), (8, 1, 64, 1, True),
+                (7, 0, 256, 2065, True), (8, 2, 256, 2065, False),
+                (7, 1, 64, 2065, False)]
+
+
+@pytest.mark.parametrize("bl,drop,n,b,in_place", FUSED_SHAPES)
+def test_fused_cmux_kernel(dev, bl, drop, n, b, in_place):
+    """K8 (int8 tensor cores) for limb_drop 0-2 and n_sub 1 (base_log 7)
+    and 2 (base_log 8), ragged row tiles, updated in place (`out=acc`) or
+    into a new tensor."""
+    cfg = dataclasses.replace(_ntt_cfg(2, n, bl, 2), mxu_limb_drop=drop)
     plan = bsx.MxuPlan.from_config(cfg)
     assert plan.n_sub == (1 if bl == 7 else 2)
-    rng = np.random.default_rng(bl + drop)
-    b, n = 70, 256
+    rng = np.random.default_rng(bl + drop + n + b)
     acc = _u32(rng, (3, b, n), dev)
     d8 = torch.from_numpy(rng.integers(-128, 128, size=(b, plan.row_blocks * n),
                                        dtype=np.int8)).to(dev)
     rings = _u32(rng, (plan.row_blocks, 3, 2 * n), dev)
     want = bsx.fused_external_product_acc_plain(plan, acc, d8, rings)
     before = bsx.fused_external_product_acc.launches
-    got = bsx.fused_external_product_acc(plan, acc, d8, rings, out=acc)
+    got = bsx.fused_external_product_acc(plan, acc, d8, rings,
+                                         out=acc if in_place else None)
     assert bsx.fused_external_product_acc.launches == before + 1
     torch.cuda.synchronize()
-    assert got is acc and torch.equal(acc, want)
+    assert (got is acc) == in_place and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("k,n,bits", [(1, 256, 32), (4, 256, 32), (1, 512, 64)])
