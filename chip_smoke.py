@@ -13,7 +13,9 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           device times (CUDA graph replay between CUDA events), the least
           time the card could take for the same work and the share of it
           reached (K8 also its T MAC/s and share of the int8 tensor rate).
-  B       a boolean-gate server at full width (u32 torus): for TPU128,
+  B       a boolean-gate server at full width (u32 torus) on the toeplitz
+          backend, named (backend="mxu"; "auto" resolves to ntt on the u32
+          torus, logged per preset): for TPU128,
           DEFAULT and TFHE_LIB parameters, key generation from fixed seeds,
           warmup of the batch tiers, then requests of mixed sizes through
           AND, XOR, NAND and MUX, every row decrypted against its truth
@@ -21,7 +23,8 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           32 rows of one TPU128 AND request recomputed through the port on
           the CPU must match the card bit for bit; every u32 kernel's launch
           count over this phase must be > 0; the median time of 5 gate calls
-          per (parameters, tier).
+          per (parameters, tier), and one profiled AND per preset at B=2048
+          with the int8 GEMM's TOP/s.
   C       the high-level API at the full width of examples/int4_lut.py (u64
           torus: LWE128_630, RLWE128_1024_1, PBS base_log 7 level 3, KSK
           base_log 2 level 8): 2048 encrypted 4-bit values through the LUT
@@ -42,9 +45,10 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           the JAX suite's engine rows (benchmarks/suite.py "nuss": n=100,
           k=1, base_log 2, level 3, B=256, N in {8192, 16384} x {u32, u64})
           with key preparation on the card, the median of 5 PBS calls and
-          one profiled call each; the first 2 CMux steps of 8 rows of the
-          u32 N=8192 cell recomputed on the CPU must match the card; K1 and
-          K5-K7 must launch.
+          one profiled call each; the u32 N=8192 cell once more on
+          backend="ntt" (K9), equal to nuss, its median beside nuss's; the
+          first 2 CMux steps of 8 rows of the u32 N=8192 cell recomputed on
+          the CPU must match the card; K1 and K5-K7 must launch.
   E       the exact-NTT backend and the fused toeplitz step: backend="ntt"
           twins of the TPU128, DEFAULT and TFHE_LIB keys (K9 every CMux
           step) through AND, XOR, NAND and MUX requests of 100 and 2048
@@ -60,6 +64,7 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           beside the unfused ones; one profiled TPU128 call each of the ntt
           AND and the fused AND. K8 and K9 must launch.
 
+Every phase logs its kernels' launches per shape key (launches_by_shape).
 The last lines are the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line and {"ok": true, "device": {...}}. Any failure
 raises, so the exit code is non-zero and no result line is printed.
@@ -85,6 +90,7 @@ from concrete_tpu_torch.core import bootstrap_ntt as bsntt
 from concrete_tpu_torch.core import bootstrap_nuss as bsn
 from concrete_tpu_torch.boolean.client_key import PLAINTEXT_LOG_SCALING_FACTOR
 from concrete_tpu_torch.core import lwe as lwe_ops
+from concrete_tpu_torch.core.ggsw import bsk_to_ntt
 from concrete_tpu_torch.highlevel.lwe import _accumulator, generate_functional_lut
 from concrete_tpu_torch.ops import _cuda
 from concrete_tpu_torch.params import (
@@ -182,6 +188,15 @@ def launch_counts() -> dict[str, int]:
     return {k: v for mod in _COUNTED for k, v in mod.launch_counts().items()}
 
 
+def read_launches(phase: str) -> dict[str, int]:
+    """The launches of each kernel since the last reset; logs them per
+    shape key as well (the wrappers' `shapes`)."""
+    shapes = {k: v for mod in _COUNTED for k, v in mod.shape_counts().items()
+              if v}
+    log(phase=phase, launches_by_shape=shapes)
+    return launch_counts()
+
+
 def log(**fields):
     print(json.dumps(fields), flush=True)
 
@@ -220,8 +235,11 @@ def time_ms(fn, reps: int = 20) -> float:
 def max_abs_err(got, want) -> int:
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-               for g, w in zip(got, want))
+
+    def wide(t):  # int8 differences fit int16 (the tables reach 906 MB)
+        return t.to(torch.int16 if t.dtype == torch.int8 else torch.int64)
+
+    return max(int((wide(g) - wide(w)).abs().max()) for g, w in zip(got, want))
 
 
 def kernel_cases(dev):
@@ -255,7 +273,7 @@ def kernel_cases(dev):
         plan = bsx.MxuPlan.from_config(bs.ServerConfig.from_boolean_parameters(params))
         n, ks1, r = plan.polynomial_size, plan.glwe_size, plan.row_blocks
         rings = u32((r, ks1, 2 * n))
-        rhs = torch.empty((r * n, ks1 * 4 * n), dtype=torch.int8, device=dev)
+        rhs = bsx.table_buffer(r * n, ks1 * 4 * n, device=dev)
         cases.append(("build_tables", f"{name} one step",
                       lambda rings=rings, n=n, rhs=rhs: bsx.build_tables(rings, n, out=rhs),
                       lambda rings=rings, n=n: bsx.build_tables_plain(rings, n),
@@ -288,8 +306,8 @@ def kernel_cases(dev):
     for drop in (0, 2):
         plan = bsx.MxuPlan.from_config(_int4_config(*INT4["pbs"], drop))
         rings = u32((plan.row_blocks, plan.glwe_size * 2, 2 * n))
-        rhs = torch.empty((plan.row_blocks * n, plan.glwe_size * plan.limbs_used * n),
-                          dtype=torch.int8, device=dev)
+        rhs = bsx.table_buffer(plan.row_blocks * n, plan.glwe_size * plan.limbs_used * n,
+                               device=dev)
         cases.append((
             "build_tables", f"int4 u64 one step limb_drop={drop}",
             lambda rings=rings, d=drop, rhs=rhs: bsx.build_tables(rings, n, d, 2, out=rhs),
@@ -372,8 +390,7 @@ def fused_kernel_cases(dev, rng, u32):
         d8 = torch.from_numpy(rng.integers(-64, 65, size=(b, r * n),
                                            dtype=np.int8)).to(dev)
         out = torch.empty_like(acc)
-        rhs = torch.empty((r * n, ks1 * plan.limbs_used * n), dtype=torch.int8,
-                          device=dev)
+        rhs = bsx.table_buffer(r * n, ks1 * plan.limbs_used * n, device=dev)
         s = torch.empty((b, ks1 * plan.limbs_used * n), dtype=torch.int32,
                         device=dev)
         macs = b * r * n * ks1 * plan.limbs_used * n
@@ -402,51 +419,76 @@ def nuss_config(n: int, bits: int, base_log: int, level: int,
 
 
 def nuss_kernel_cases(dev, rng, u32, u64, degrees):
-    """Phase A's Nussbaumer rows at the phase-D shapes (B=256, k+1=2,
-    L=32): K5 at the u32 N=8192 and 16384 engine shapes, K6 at u64 N=8192,
-    K7 at u32 N=8192 (n_sub 1) and at base_log 7 (n_sub 2, u32 and the u64
-    int4 cell), K1 on the u64 N=8192 rings (3 word planes, 9 limbs)."""
+    """Phase A's Nussbaumer rows at the phase-D shapes (k+1=2, L=32): K5 at
+    the u32 N=8192 and 16384 engine shapes (B=256) and on the TFHE_LIB ring
+    (N=1024, M=32, B=2048), K6 at u64 N=8192, K7 at u32 N=8192 (n_sub 1),
+    at base_log 7 (n_sub 2, u32 and the u64 int4 cell) and on the TFHE_LIB
+    ring (n_sub 2, B=2048), K1 on the u64 N=8192 engine rings (3 word
+    planes, 9 limbs), the int4 N=8192 rings (n_sub 2: the 906 MB table) and
+    the TFHE_LIB ring, one table per frequency as the blind rotation
+    builds them."""
     b = NUSS_ENGINE["batch"]
     cases = []
 
-    def dot_output(plan):
+    def dot_output(plan, b):
         return torch.from_numpy(rng.integers(
             -(1 << 31), 1 << 31, size=(plan.two_l, b, plan.glwe_size *
                                        plan.limbs_used * plan.m),
             dtype=np.int32)).to(dev)
 
-    for n, bits in ((8192, 32), (16384, 32), (8192, 64)):
-        plan = bsn.NussPlan.from_config(nuss_config(n, bits, *NUSS_ENGINE["pbs"]))
+    tfhe_lib = bsn.NussPlan.from_config(
+        bs.ServerConfig.from_boolean_parameters(PRESETS["TFHE_LIB"]))
+    for plan, bb in [(bsn.NussPlan.from_config(nuss_config(n, bits, *NUSS_ENGINE["pbs"])), b)
+                     for n, bits in ((8192, 32), (16384, 32), (8192, 64))] + [
+                         (tfhe_lib, NUSS_GATE_ROWS)]:
+        bits = plan.bits
         kernel, plain = ((bsn.recombine_inv, bsn.recombine_inv_plain) if bits == 32
                          else (bsn.recombine_inv64, bsn.recombine_inv64_plain))
-        s = dot_output(plan)
-        out = torch.empty((2, b, plan.l, plan.m), device=dev,
+        s = dot_output(plan, bb)
+        out = torch.empty((plan.glwe_size, bb, plan.l, plan.m), device=dev,
                           dtype=torch.int32 if bits == 32 else torch.int64)
-        cases.append((kernel.__name__, f"u{bits} N={n} L={plan.l} B={b}",
+        cases.append((kernel.__name__,
+                      f"u{bits} N={plan.polynomial_size} L={plan.l} M={plan.m} B={bb}",
                       lambda k=kernel, p=plan, s=s, o=out: k(p, s, out=o),
                       lambda f=plain, p=plan, s=s: f(p, s), (s,)))
-    for bits, (bl, lv) in ((32, NUSS_ENGINE["pbs"]), (32, INT4["pbs"]),
-                           (64, INT4["pbs"])):
-        plan = bsn.NussPlan.from_config(nuss_config(8192, bits, bl, lv))
-        shape = (2, b, plan.l, plan.m)
-        acc = u32(shape) if bits == 32 else u64((2, b, plan.l * plan.m)).view(shape)
-        a_hat = degrees(8192, b)
-        d8 = torch.empty((plan.two_l, b, plan.row_blocks * plan.m),
+    k7_plans = [(bsn.NussPlan.from_config(nuss_config(8192, bits, bl, lv)), b)
+                for bits, (bl, lv) in ((32, NUSS_ENGINE["pbs"]), (32, INT4["pbs"]),
+                                       (64, INT4["pbs"]))]
+    for plan, bb in k7_plans + [(tfhe_lib, NUSS_GATE_ROWS)]:
+        n, bits = plan.polynomial_size, plan.bits
+        shape = (plan.glwe_size, bb, plan.l, plan.m)
+        acc = (u32(shape) if bits == 32
+               else u64((plan.glwe_size, bb, n)).view(shape))
+        a_hat = degrees(n, bb)
+        d8 = torch.empty((plan.two_l, bb, plan.row_blocks * plan.m),
                          dtype=torch.int8, device=dev)
         cases.append((
-            "rotdig_fwd_nuss", f"u{bits} N=8192 bl={bl} l={lv} n_sub={plan.n_sub} B={b}",
+            "rotdig_fwd_nuss",
+            f"u{bits} N={n} L={plan.l} M={plan.m} bl={plan.base_log} "
+            f"l={plan.level} n_sub={plan.n_sub} B={bb}",
             lambda p=plan, acc=acc, a=a_hat, d8=d8: bsn.rotdig_fwd_nuss(p, acc, a, out=d8),
             lambda p=plan, acc=acc, a=a_hat: bsn.rotdig_fwd_nuss_plain(p, acc, a),
             (acc, a_hat)))
-    plan = bsn.NussPlan.from_config(nuss_config(8192, 64, *NUSS_ENGINE["pbs"]))
-    m, nw, hd = plan.m, plan.n_words, plan.limb_hi_drop
-    rings = u32((plan.two_l * plan.row_blocks, 2 * nw, 2 * m))
-    rhs = torch.empty((plan.two_l * plan.row_blocks * m, 2 * plan.limbs_used * m),
-                      dtype=torch.int8, device=dev)
-    cases.append((
-        "build_tables", f"nuss u64 N=8192 one step ({nw} words, {plan.limbs_used} limbs)",
-        lambda: bsx.build_tables(rings, m, 0, nw, hd, out=rhs),
-        lambda: bsx.build_tables_plain(rings, m, 0, nw, hd), (rings,)))
+    int4_8192 = bsn.NussPlan.from_config(dataclasses.replace(
+        _int4_config(*INT4["pbs"]),
+        polynomial_size=INT4_8192["rlwe"].polynomial_size))
+    for label, plan in (("engine", bsn.NussPlan.from_config(
+                            nuss_config(8192, 64, *NUSS_ENGINE["pbs"]))),
+                        ("int4", int4_8192), ("TFHE_LIB", tfhe_lib)):
+        m, nw, hd = plan.m, plan.n_words, plan.limb_hi_drop
+        rows, cols = plan.row_blocks * m, plan.glwe_size * plan.limbs_used * m
+        rings = u32((plan.two_l * plan.row_blocks, plan.glwe_size * nw, 2 * m))
+        rhs = bsx.table_buffer(rows, cols, plan.two_l, device=dev)
+        cases.append((
+            "build_tables",
+            f"nuss {label} u{plan.bits} N={plan.polynomial_size} one step "
+            f"({nw} words, {plan.limbs_used} limbs, {rhs.numel() / 1e6:.1f} MB)",
+            lambda r=rings, p=plan, o=rhs: bsx.build_tables(
+                r, p.m, 0, p.n_words, p.limb_hi_drop, groups=p.two_l, out=o),
+            lambda r=rings, p=plan: bsx.build_tables_plain(
+                r, p.m, 0, p.n_words, p.limb_hi_drop).view(
+                    p.two_l, p.row_blocks * p.m, -1),
+            (rings,)))
     return cases
 
 
@@ -536,12 +578,18 @@ def phase_b(dev, card):
         cks, sks = boolean.gen_keys(params, secret_seed=11, mask_seed=12,
                                     noise_seed=13, device=dev)
         keygen_s = time.perf_counter() - t0
+        # phase B measures the toeplitz path, which "auto" no longer picks
+        # on the u32 torus (phase E runs the ntt twin it resolves to)
+        auto = sks.resolved_backend()
+        sks = dataclasses.replace(sks, backend="mxu")
         t0 = time.perf_counter()
         sks.bsk_mxu, sks.ksk8  # noqa: B018 - evaluation keys onto the card
         prep_s = time.perf_counter() - t0
         warm = sks.warmup(TIERS[name])
-        log(phase="B", params=name, keygen_s=keygen_s, key_prep_s=prep_s,
-            warmup_s=warm)
+        log(phase="B", params=name, auto_backend=auto,
+            backend=sks.resolved_backend(), keygen_s=keygen_s,
+            key_prep_s=prep_s,
+            warmup_s={f"{gate} B={tier}": s for (gate, tier), s in warm.items()})
         for size in REQUESTS[name]:
             (a, b, c), (ca, cb, cc) = encrypt_bools(cks, size, 1000 + size)
             for gate in GATES:
@@ -569,10 +617,14 @@ def phase_b(dev, card):
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
             med = statistics.median(times)
+            plan = bsx.MxuPlan.from_config(sks.cfg)
             log(phase="B", params=name, tier=tier, gate="and_",
                 ms_per_call=med * 1e3, gates_per_s=tier / med,
-                deferred=bsx.auto_defer(bsx.MxuPlan.from_config(sks.cfg), tier),
-                card=card)
+                deferred=bsx.auto_defer(plan, tier), card=card)
+            if tier == 2048:
+                profile_call(f"{name} mxu AND B={tier}",
+                             lambda: sks.and_(ca, cb), card,
+                             gemm_ops=mxu_gemm_ops(plan, tier))
         if name == "TFHE_LIB":
             fast_mode_request(cks, sks, card)
         del sks
@@ -594,10 +646,29 @@ _KERNEL_KINDS = (("ntt_cmux_kernel", "K9 ntt_cmux"),
                  ("gemm", "int8 GEMM"), ("cutlass", "int8 GEMM"))
 
 
-def profile_call(label: str, fn, card):
+def mxu_gemm_ops(plan, b: int) -> int:
+    """int8 operations (2 a MAC) of the CMux products of one toeplitz blind
+    rotation at batch b: per step [b, R*N] x [R*N, (k+1)*limbs*N]."""
+    n = plan.polynomial_size
+    return (2 * plan.lwe_dimension * b * plan.row_blocks * n
+            * plan.glwe_size * plan.limbs_used * n)
+
+
+def nuss_gemm_ops(plan, b: int) -> int:
+    """The same for the Nussbaumer path: 2L products a step, each
+    [b, R'*M] x [R'*M, (k+1)*limbs*M]."""
+    m = plan.m
+    return (2 * plan.lwe_dimension * plan.two_l * b * plan.row_blocks * m
+            * plan.glwe_size * plan.limbs_used * m)
+
+
+def profile_call(label: str, fn, card, gemm_ops=None):
     """One call of `fn` under torch.profiler: device time summed by kernel
     kind, and the device idle share of the call's wall time (the profiler
-    adds host overhead, so the idle share is an upper bound)."""
+    adds host overhead, so the idle share is an upper bound). With
+    `gemm_ops`, the int8 operations of the call's CMux products, also the
+    int8 GEMM's rate in TOP/s (its device time includes a gate's keyswitch
+    product, under 1% of the CMux products' operations)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -614,8 +685,11 @@ def profile_call(label: str, fn, card):
                     "other (torch elementwise, copies)")
         kinds[kind] = kinds.get(kind, 0.0) + evt.self_device_time_total / 1e3
     busy = sum(kinds.values())
+    more = {}
+    if gemm_ops and kinds.get("int8 GEMM"):
+        more["gemm_tops"] = gemm_ops / (kinds["int8 GEMM"] * 1e-3) / 1e12
     log(phase="profile", cell=label, wall_ms=wall_ms, device_ms=busy,
-        idle_share=1.0 - busy / wall_ms,
+        idle_share=1.0 - busy / wall_ms, **more,
         device_ms_by_kind=dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
         card=card)
 
@@ -648,7 +722,8 @@ def fast_mode_request(cks, sks, card):
         gates=["and_", "xor"], truth_tables="ok", ms_per_call=med * 1e3,
         gates_per_s=2048 / med, card=card)
     profile_call("TFHE_LIB fast (levels=2) AND B=2048",
-                 lambda: fast.and_(ca, cb), card)
+                 lambda: fast.and_(ca, cb), card,
+                 gemm_ops=mxu_gemm_ops(bsx.MxuPlan.from_config(fast.cfg), 2048))
 
 
 def int4_table(x) -> float:
@@ -717,7 +792,8 @@ def phase_c(dev, card):
     t0 = time.perf_counter()
     bsk.bsk_mxu, ksk.limbs  # noqa: B018 - evaluation keys onto the card
     torch.cuda.synchronize()
-    log(phase="C", keygen_s=keygen_s, key_prep_s=time.perf_counter() - t0)
+    log(phase="C", auto_backend=bsk.resolved_backend(), keygen_s=keygen_s,
+        key_prep_s=time.perf_counter() - t0)
 
     enc = hl.Encoder.new(0.0, 15.0, nb_bit_precision=4, nb_bit_padding=1)
     xs = np.random.default_rng(27).integers(0, 16, size=b).astype(np.float64)
@@ -734,7 +810,7 @@ def phase_c(dev, card):
         outs[label] = (out, out.keyswitch(ksk))
     multi = ct3.bootstrap_with_functions(bsk, MULTI_FNS, enc3)
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = read_launches("C")
     log(phase="C", main_path_s=time.perf_counter() - t0, launches=launches)
 
     for label, (out, ks) in outs.items():
@@ -759,7 +835,8 @@ def phase_c(dev, card):
         log(phase="C", pbs=label, batch=b, ms_per_call=med * 1e3,
             pbs_per_s=b / med, card=card)
         profile_call(f"int4 PBS {label} B={b}",
-                     lambda key=key: key.run_bootstrap(acc, cts), card)
+                     lambda key=key: key.run_bootstrap(acc, cts), card,
+                     gemm_ops=mxu_gemm_ops(bsx.MxuPlan.from_config(key.cfg), b))
     big_ct = bsk.run_bootstrap(acc, cts)
     med = median_s(lambda: ksk.run_keyswitch(big_ct))
     log(phase="C", keyswitch=f"{big.dimension}->{sk.dimension}", batch=b,
@@ -796,6 +873,7 @@ def nuss_gates(dev, card):
     rows = NUSS_GATE_ROWS
     cks, sks = boolean.gen_keys(PRESETS["TFHE_LIB"], secret_seed=11,
                                 mask_seed=12, noise_seed=13, device=dev)
+    mxu = dataclasses.replace(sks, backend="mxu")
     nuss = dataclasses.replace(sks, backend="nuss", _warmed_tiers=set())
     plan = bsn.NussPlan.from_config(nuss.cfg)
     t0 = time.perf_counter()
@@ -807,15 +885,17 @@ def nuss_gates(dev, card):
         got = call_gate(nuss, gate, ca, cb, cc)
         if not np.array_equal(cks.decrypt(got), truth(gate, a, b, c)):
             raise AssertionError(f"TFHE_LIB nuss {gate}: wrong truth table")
-        if not torch.equal(got, call_gate(sks, gate, ca, cb, cc)):
+        if not torch.equal(got, call_gate(mxu, gate, ca, cb, cc)):
             raise AssertionError(f"TFHE_LIB nuss {gate} differs from mxu")
     ca, cb = torus.from_numpy(ca, dev), torus.from_numpy(cb, dev)
     med = median_s(lambda: nuss.and_(ca, cb))
-    log(phase="D", params="TFHE_LIB nuss", L=plan.l, M=plan.m,
+    log(phase="D", params="TFHE_LIB nuss", auto_backend=sks.resolved_backend(),
+        L=plan.l, M=plan.m,
         n_sub=plan.n_sub, key_prep_s=prep_s, rows=rows, gates=["and_", "xor"],
         truth_tables="ok", equal_to_mxu=True, ms_per_call=med * 1e3,
         gates_per_s=rows / med, card=card)
-    profile_call(f"TFHE_LIB nuss AND B={rows}", lambda: nuss.and_(ca, cb), card)
+    profile_call(f"TFHE_LIB nuss AND B={rows}", lambda: nuss.and_(ca, cb), card,
+                 gemm_ops=nuss_gemm_ops(plan, rows))
 
 
 def nuss_int4(dev, card):
@@ -836,7 +916,8 @@ def nuss_int4(dev, card):
     t0 = time.perf_counter()
     rings = bsk.bsk_nuss
     torch.cuda.synchronize()
-    log(phase="D", cell="int4 N=8192", backend="nuss", L=plan.l, M=plan.m,
+    log(phase="D", cell="int4 N=8192", auto_backend=bsk.resolved_backend(),
+        backend="nuss", L=plan.l, M=plan.m,
         n_sub=plan.n_sub, keygen_s=keygen_s,
         key_prep_s=time.perf_counter() - t0,
         rings_gb=rings.numel() * 4 / 1e9)
@@ -868,7 +949,7 @@ def nuss_int4(dev, card):
     log(phase="D", cell="int4 N=8192", batch=b, ms_per_call=med * 1e3,
         pbs_per_s=b / med, card=card)
     profile_call(f"int4 N=8192 PBS B={b}", lambda: bsk.run_bootstrap(acc, cts),
-                 card)
+                 card, gemm_ops=nuss_gemm_ops(plan, b))
 
 
 def nuss_engine(dev, card):
@@ -903,16 +984,40 @@ def nuss_engine(dev, card):
             if out.shape != (b, n + 1):
                 raise AssertionError(f"{label}: output {tuple(out.shape)}")
             med = median_s(run)
-            log(phase="D", cell=label, L=plan.l, M=plan.m, limbs=plan.limbs_used,
+            log(phase="D", cell=label, auto_backend=bsn.resolve_backend(cfg, "auto"),
+                backend="nuss", L=plan.l, M=plan.m, limbs=plan.limbs_used,
                 key_prep_s=prep_s, batch=b, ms_per_call=med * 1e3,
                 pbs_per_s=b / med, card=card)
-            profile_call(f"{label} PBS B={b}", run, card)
+            profile_call(f"{label} PBS B={b}", run, card, gemm_ops=nuss_gemm_ops(plan, b))
+            if (n, bits) == (NUSS_ENGINE["sizes"][0], 32):
+                engine_ntt(cfg, bsk, lut, cts, out, med, card)
             if n == NUSS_ENGINE["sizes"][0] and bits == 32:
                 cpu_check = (cfg, bsk[:NUSS_CPU_STEPS], rings[:NUSS_CPU_STEPS],
                              lut, cts[:NUSS_CPU_ROWS])
             del rings, out
             torch.cuda.empty_cache()
     return cpu_check
+
+
+def engine_ntt(cfg, bsk, lut, cts, nuss_out, nuss_s, card):
+    """The u32 N=8192 engine cell on backend="ntt" (K9 every step), beside
+    its nuss median: the measurement behind auto's u32 rule at large N. The
+    output must equal the nuss backend's."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spectra = bsk_to_ntt(bsk, cfg.primes, 32, device=cts.device)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    run = lambda: bsntt.bootstrap(cfg, spectra, lut, cts)  # noqa: E731
+    if not torch.equal(run(), nuss_out):
+        raise AssertionError("engine u32 N=8192: ntt differs from nuss")
+    med = median_s(run)
+    log(phase="D", cell=f"engine u32 N={cfg.polynomial_size}", backend="ntt",
+        k9=bsntt.kernel_applies(cfg), key_prep_s=prep_s, batch=cts.shape[0],
+        ms_per_call=med * 1e3, pbs_per_s=cts.shape[0] / med,
+        nuss_ms_per_call=nuss_s * 1e3, equal_to_nuss=True, card=card)
+    profile_call(f"engine u32 N={cfg.polynomial_size} ntt PBS B={cts.shape[0]}",
+                 run, card)
 
 
 def nuss_cpu_check(cfg, bsk, rings, lut, cts):
@@ -943,7 +1048,7 @@ def phase_d(dev, card):
     torch.cuda.empty_cache()
     cpu_check = nuss_engine(dev, card)
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = read_launches("D")
     log(phase="D", launches=launches)
     nuss_cpu_check(*cpu_check)
     return launches
@@ -956,11 +1061,13 @@ def ntt_gate_server(name, params, dev, card):
     TPU128 CPU cross-check inputs (else None)."""
     cks, sks = boolean.gen_keys(params, secret_seed=11, mask_seed=12,
                                 noise_seed=13, device=dev)
+    auto = sks.resolved_backend()
+    sks = dataclasses.replace(sks, backend="mxu")
     ntt = dataclasses.replace(sks, backend="ntt", _warmed_tiers=set())
     t0 = time.perf_counter()
     ntt.bsk_ntt, ntt.ksk8  # noqa: B018 - key preparation on the card
     torch.cuda.synchronize()
-    log(phase="E", params=name, backend=ntt.resolved_backend(),
+    log(phase="E", params=name, auto_backend=auto, backend=ntt.resolved_backend(),
         primes=list(ntt.cfg.primes), k9=bsntt.kernel_applies(ntt.cfg),
         key_prep_s=time.perf_counter() - t0,
         bsk_ntt_mb=ntt.bsk_ntt.numel() * 4 / 1e6)
@@ -1075,7 +1182,7 @@ def phase_e(dev, card):
         torch.cuda.empty_cache()
     ntt_int4(dev, card)
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches = read_launches("E")
     log(phase="E", launches=launches)
     t0 = time.perf_counter()
     ntt, ca, cb, want = cpu_check
@@ -1124,7 +1231,7 @@ def main():
         t0 = time.perf_counter()
         reset_launch_counts()
         cpu_check = phase_b(dev, card)
-        path_launches["B"] = launch_counts()
+        path_launches["B"] = read_launches("B")
         log(phase="B", seconds=time.perf_counter() - t0,
             launches=path_launches["B"])
         check_launched("B", path_launches["B"])

@@ -22,7 +22,7 @@ def gen_keys(parameters: BooleanParameters = DEFAULT_PARAMETERS, *,
     >>> tiny = BooleanParameters(4, 1, 16, StandardDev(0.0), StandardDev(0.0), 7, 2, 2, 2)
     >>> cks, sks = gen_keys(tiny, secret_seed=1, mask_seed=2, noise_seed=3, device="cpu")
     >>> sks.bsk_standard.shape, sks.resolved_backend()
-    ((4, 2, 2, 2, 16), 'mxu')
+    ((4, 2, 2, 2, 16), 'ntt')
     """
     cks = ClientKey.new(parameters, secret_seed=secret_seed)
     sks = ServerKey.new(cks, mask_seed=mask_seed, noise_seed=noise_seed,

@@ -6,10 +6,11 @@ Every bootstrapped gate is a linear combination, a PBS with the constant
   OR:   l + r + 1/8        NOR:  -l - r - 1/8
   XOR:  2(l + r) + 1/4     XNOR: 2(-l - r) - 1/4
   NOT:  -l (no bootstrap)  MUX:  pbs(c+t-1/8) + pbs(-c+e-1/8) + 1/8, keyswitch
-The PBS runs through the toeplitz ("mxu") backend for N <= 4096 and the
-Nussbaumer ("nuss") backend above (`backend="auto"`), the exact-NTT ("ntt")
-backend where neither takes the configuration, or the one named by
-`backend`; the three are bit-identical. Gates take np.uint32 arrays or int32
+With `backend="auto"` the PBS runs through the exact-NTT ("ntt") backend
+wherever its CRT primes take the configuration, else the toeplitz ("mxu")
+backend for N <= 4096 and the Nussbaumer ("nuss") backend above
+(bootstrap_nuss.resolve_backend); or through the one named by `backend`.
+The three are bit-identical. Gates take np.uint32 arrays or int32
 tensors [..., n+1] and return int32 tensors on the key's device.
 
 Example (AND and XOR on tiny insecure parameters, on the CPU):
@@ -102,10 +103,10 @@ class ServerKey:
 
     def resolved_backend(self) -> str:
         """The backend the gates run: `backend` when it is "mxu", "nuss" or
-        "ntt" (checked against the configuration), else "mxu" where its plan
-        accepts the configuration (N <= 4096), "nuss" where the Nussbaumer
-        plan does (N = 8192, 16384) and "ntt" elsewhere: concrete_tpu's
-        order on the TPU (off the TPU it picks ntt)."""
+        "ntt" (checked against the configuration), else "ntt" wherever the
+        ntt backend takes the configuration, as concrete_tpu picks off the
+        TPU (on an H100 its K9 step is the fastest gate path), and
+        otherwise "mxu" (N <= 4096) or "nuss" (N = 8192, 16384)."""
         return bsn.resolve_backend(self.cfg, self.backend)
 
     @property
@@ -250,25 +251,39 @@ class ServerKey:
         out = fn(*flats)
         return out[:b].reshape(lead + out.shape[-1:])
 
-    def warmup(self, batch_sizes=(2048,)):
-        """Build the CUDA kernels (on a CUDA key) and run one AND call per
-        batch tier, which also moves the evaluation keys onto the device.
-        Each size is rounded up to a power-of-two tier; later gate calls pad
-        every request up to the smallest warmed tier that fits. Returns
-        {tier: seconds}."""
+    def warmup(self, batch_sizes=(2048,), gates=("and",), mux=False):
+        """Build the CUDA kernels (on a CUDA key) and run one call per (gate,
+        batch tier), plus MUX when `mux` is set, as concrete_tpu's
+        ServerKey.warmup; the first call also moves the evaluation keys onto
+        the device. Gates are named as there ("and", "xor", ... the keys of
+        _GATE_LIN). Each size is rounded up to a power-of-two tier; later
+        gate calls pad every request up to the smallest warmed tier that
+        fits. Returns {(gate, tier): seconds}."""
+        unknown = [g for g in gates if g not in _GATE_LIN]
+        if unknown:
+            raise ValueError(f"gates {unknown}: expected names among "
+                             f"{sorted(_GATE_LIN)}")
         if self.device.type == "cuda":
             _cuda.load_all()
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            fn()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return time.perf_counter() - t0
+
         timings = {}
         for bsz in batch_sizes:
             tier = 1 << (int(bsz) - 1).bit_length() if bsz > 1 else 1
             self._warmed_tiers.add(tier)
             z = torch.zeros((tier, self.cfg.lwe_dimension + 1),
                             dtype=torch.int32, device=self.device)
-            t0 = time.perf_counter()
-            self.and_(z, z)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            timings[tier] = time.perf_counter() - t0
+            for gate in gates:
+                timings[(gate, tier)] = timed(
+                    lambda gate=gate: self._run_gate(gate, z, z))
+            if mux:
+                timings[("mux", tier)] = timed(lambda: self.mux(z, z, z))
         return timings
 
     # -- gates ---------------------------------------------------------------

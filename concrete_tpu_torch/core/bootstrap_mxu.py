@@ -14,7 +14,8 @@ Exactness, as in the JAX package:
 
 One CMux step of the blind rotation, batch B, L = bits/8 - limb_drop limbs:
     rotdig / rotdig64 (K2 / K4)  digits of X^a_hat * acc - acc -> d8 [B, R*N] int8
-    build_tables (K1)   toeplitz RHS of the step's GGSW -> rhs [R*N, (k+1)*L*N] int8
+    build_tables (K1)   toeplitz RHS of the step's GGSW -> rhs [R*N, (k+1)*L*N] int8,
+                        column-major
     int_mm              S = d8 @ rhs                    -> [B, (k+1)*L*N] int32
     recombine           acc += sum_m S_m << 8(limb_drop + m)
 At large batch on the u32 torus the dot-first form folds the recombine of
@@ -87,8 +88,8 @@ class MxuPlan:
             raise NotImplementedError("mxu bootstrap: u32 / u64 torus only")
         if cfg.polynomial_size > 4096:
             raise NotImplementedError(
-                "toeplitz RHS is O(N^2) per CMux; N > 4096 needs the "
-                "Nussbaumer backend, which is not ported yet")
+                "toeplitz RHS is O(N^2) per CMux; for N > 4096 use "
+                "backend=\"nuss\" (or \"ntt\")")
         bl = cfg.pbs_base_log
         if not (1 <= bl < 32 and bl * cfg.pbs_level <= cfg.bits):
             raise NotImplementedError(
@@ -246,11 +247,21 @@ def _ceil8(x: int) -> int:
 def int_mm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None):
     """Exact a [M, K] int8 @ b [K, N] int8 -> [M, N] int32 (torch._int_mm).
 
+    `b` may be row-major or column-major (the transpose of a contiguous
+    [N, K], as build_tables returns it): torch._int_mm takes either without
+    a copy, and cuBLASLt's int8 product reads the column-major one fastest.
+
     On CUDA, torch._int_mm refuses M <= 16 and K or N not a multiple of 8,
     and its cuBLASLt call refused every M that is not a multiple of 32 once
     K <= 64 (torch 2.11, H100); such shapes are zero-padded to M a multiple
     of 32 and K, N multiples of 8 (the padding adds zeros and is cut off),
-    and only there."""
+    and only there, into a buffer of b's layout.
+
+    >>> a = torch.ones((2, 3), dtype=torch.int8)
+    >>> b = torch.arange(12, dtype=torch.int8).reshape(4, 3).t()  # column-major
+    >>> int_mm(a, b).tolist()
+    [[3, 12, 21, 30], [3, 12, 21, 30]]
+    """
     m, k = a.shape
     n = b.shape[1]
     if a.device.type == "cuda":
@@ -258,13 +269,32 @@ def int_mm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None):
         if (mp, kp, np_) != (m, k, n):
             ap = torch.zeros((mp, kp), dtype=a.dtype, device=a.device)
             ap[:m, :k] = a
-            bp = torch.zeros((kp, np_), dtype=b.dtype, device=b.device)
+            if _column_major(b):
+                bp = torch.zeros((np_, kp), dtype=b.dtype, device=b.device).t()
+            else:
+                bp = torch.zeros((kp, np_), dtype=b.dtype, device=b.device)
             bp[:k, :n] = b
             res = torch._int_mm(ap, bp)[:m, :n]
             return res if out is None else out.copy_(res)
     if out is None:
         return torch._int_mm(a, b)
     return torch._int_mm(a, b, out=out)
+
+
+def _column_major(t: torch.Tensor) -> bool:
+    """Is the last two axes' layout column-major (their transpose
+    contiguous)?"""
+    return t.transpose(-1, -2).is_contiguous()
+
+
+def table_buffer(rows: int, cols: int, groups: int = 1, *,
+                 device=None) -> torch.Tensor:
+    """An uninitialised build_tables output: [rows, cols] int8 column-major
+    (groups=1), or [groups, rows, cols] with each group's matrix
+    column-major (the Nussbaumer tables, one per frequency)."""
+    buf = torch.empty((groups, cols, rows), dtype=torch.int8, device=device)
+    buf = buf.transpose(1, 2)
+    return buf[0] if groups == 1 else buf
 
 
 def _toeplitz_matmul(plan: MxuPlan, d8, rhs, out=None):
@@ -339,36 +369,64 @@ def build_tables_plain(rings: torch.Tensor, n: int, limb_drop: int = 0,
 
 
 def build_tables(rings: torch.Tensor, n: int, limb_drop: int = 0,
-                 n_words: int = 1, limb_hi_drop: int = 0, *,
+                 n_words: int = 1, limb_hi_drop: int = 0, *, groups: int = 1,
                  out: torch.Tensor | None = None) -> torch.Tensor:
     """K1, the toeplitz RHS of one CMux step (build_tables_plain), from u32
     (n_words=1) or u64 (n_words=2) rings, or from the Nussbaumer rings
     (n_words=2 on the u32 torus, 3 on the u64 torus, with limb_hi_drop high
-    limbs dropped; n is then M). `out`, when given, is written in place:
-    the blind rotation allocates it once and reuses it every step."""
+    limbs dropped; n is then M).
+
+    The table is written column-major (table_buffer), the layout
+    torch._int_mm's cuBLASLt path reads fastest; the values are
+    build_tables_plain's. With `groups` > 1 the R ring blocks split into
+    that many consecutive groups, and the result is [groups, R*N/groups,
+    cols], each group's matrix column-major (the Nussbaumer backend: one
+    group per frequency). `out`, when given, is written in place and
+    returned: the blind rotation allocates it once (table_buffer) and
+    reuses it every step; on the CPU it may have any layout.
+
+    >>> rings = torch.arange(2 * 2 * 8, dtype=torch.int32).reshape(2, 2, 8)
+    >>> t = build_tables(rings, 4)
+    >>> t.shape, t.stride(), torch.equal(t, build_tables_plain(rings, 4))
+    (torch.Size([8, 32]), (1, 8), True)
+    """
     r_blocks, planes = rings.shape[:2]
     ks1 = planes // n_words
     nk = 4 * n_words - limb_drop - limb_hi_drop
     if n_words not in (1, 2, 3) or min(limb_drop, limb_hi_drop) < 0 or nk < 1:
         raise ValueError(f"n_words={n_words}, limb_drop={limb_drop}, "
                          f"limb_hi_drop={limb_hi_drop}")
-    shape = (r_blocks * n, ks1 * nk * n)
+    if groups < 1 or r_blocks % groups:
+        raise ValueError(f"groups={groups} must divide {r_blocks} ring blocks")
+    rows, cols = r_blocks // groups * n, ks1 * nk * n
+    shape = (rows, cols) if groups == 1 else (groups, rows, cols)
     _check(rings, "rings", torch.int32, (r_blocks, ks1 * n_words, 2 * n))
     if out is not None:
-        _check(out, "out", torch.int8, shape)
+        if out.dtype != torch.int8 or tuple(out.shape) != shape:
+            raise ValueError(f"out: expected int8 {shape}, got {out.dtype} "
+                             f"{tuple(out.shape)}")
     if _on_cpu(rings, out):
-        res = build_tables_plain(rings, n, limb_drop, n_words, limb_hi_drop)
-        return res if out is None else out.copy_(res)
+        res = build_tables_plain(rings, n, limb_drop, n_words,
+                                 limb_hi_drop).view(shape)
+        if out is None:
+            out = table_buffer(rows, cols, groups, device=rings.device)
+        return out.copy_(res)
     if out is None:
-        out = torch.empty(shape, dtype=torch.int8, device=rings.device)
+        out = table_buffer(rows, cols, groups, device=rings.device)
+    elif not _column_major(out):
+        raise ValueError("out: the kernel writes a column-major table "
+                         "(table_buffer)")
     _check_kernel_operands(n, rings, out)
+    if n % 16:
+        raise ValueError(f"N={n}: K1 writes 16-byte runs, N a multiple of 16")
     _cuda.launch("ctt_build_tables", rings, out, r_blocks, ks1, n, nk,
-                 limb_drop, n_words)
-    build_tables.launches += 1
+                 limb_drop, n_words, groups)
+    _cuda.count_launch(build_tables, R=r_blocks, N=n, ks1=ks1, words=n_words,
+                       limbs=nk, groups=groups)
     return out
 
 
-build_tables.launches = 0
+_cuda.counter(build_tables)
 
 
 def rotdig_plain(plan: MxuPlan, acc: torch.Tensor, a_hat: torch.Tensor):
@@ -399,7 +457,8 @@ def _rotdig_launch(kernel, entry: str, dtype, plan: MxuPlan, acc, a_hat, out):
         _check_kernel_operands(n, acc, out)
         _cuda.launch(entry, acc, a_hat, out, b, ks1, n, plan.base_log,
                      plan.level, plan.n_sub)
-        kernel.launches += 1
+        _cuda.count_launch(kernel, B=b, ks1=ks1, N=n, bl=plan.base_log,
+                           l=plan.level, n_sub=plan.n_sub)
     return out
 
 
@@ -419,8 +478,8 @@ def rotdig64(plan: MxuPlan, acc: torch.Tensor, a_hat: torch.Tensor, *,
                           a_hat, out)
 
 
-rotdig.launches = 0
-rotdig64.launches = 0
+_cuda.counter(rotdig)
+_cuda.counter(rotdig64)
 
 
 def rotdig_recombine_plain(plan: MxuPlan, s: torch.Tensor, acc: torch.Tensor,
@@ -462,11 +521,12 @@ def rotdig_recombine(plan: MxuPlan, s: torch.Tensor, acc: torch.Tensor,
         _cuda.launch("ctt_rotdig_recombine", s, acc, a_hat, acc_out, d8_out,
                      b, ks1, n, plan.limbs_used, plan.limb_drop,
                      plan.base_log, plan.level, plan.n_sub)
-        rotdig_recombine.launches += 1
+        _cuda.count_launch(rotdig_recombine, B=b, ks1=ks1, N=n,
+                           bl=plan.base_log, l=plan.level, n_sub=plan.n_sub)
     return acc_out, d8_out
 
 
-rotdig_recombine.launches = 0
+_cuda.counter(rotdig_recombine)
 
 FUSED_TILE = 64  # K8's column and depth tile (its row tile is 128)
 
@@ -523,11 +583,12 @@ def fused_external_product_acc(plan: MxuPlan, acc: torch.Tensor,
         _check_kernel_operands(n, acc, d8, rings, out)
         _cuda.launch("ctt_fused_cmux", acc, d8, rings, out, b, ks1, n, r,
                      plan.limbs_used, plan.limb_drop)
-        fused_external_product_acc.launches += 1
+        _cuda.count_launch(fused_external_product_acc, B=b, ks1=ks1, N=n, R=r,
+                           limbs=plan.limbs_used)
     return out
 
 
-fused_external_product_acc.launches = 0
+_cuda.counter(fused_external_product_acc)
 
 KERNELS = (build_tables, rotdig, rotdig_recombine, rotdig64,
            fused_external_product_acc)
@@ -538,9 +599,14 @@ def launch_counts() -> dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def shape_counts() -> dict[str, dict[str, int]]:
+    """Kernel launches per wrapper and shape key since the last reset."""
+    return {k.__name__: dict(k.shapes) for k in KERNELS}
+
+
 def reset_launch_counts():
     for k in KERNELS:
-        k.launches = 0
+        _cuda.counter(k)
 
 
 # ---------------------------------------------------------------------------
@@ -571,7 +637,7 @@ def _step_buffers(plan: MxuPlan, b: int, device):
     n, r = plan.polynomial_size, plan.row_blocks
     cols = plan.glwe_size * plan.limbs_used * n
     d8 = torch.empty((b, r * n), dtype=torch.int8, device=device)
-    rhs = torch.empty((r * n, cols), dtype=torch.int8, device=device)
+    rhs = table_buffer(r * n, cols, device=device)
     s = torch.zeros((b, cols), dtype=torch.int32, device=device)
     return d8, rhs, s
 

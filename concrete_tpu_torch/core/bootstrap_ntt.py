@@ -241,11 +241,12 @@ def ntt_cmux(cfg: ServerConfig, acc: torch.Tensor, a_hat: torch.Tensor,
         _cuda.launch("ctt_ntt_cmux", acc, a_hat, ggsw_i, tables, consts, out,
                      b, ks1, n, cfg.pbs_level, cfg.pbs_base_log,
                      *block_geometry(ks1, n, cfg.pbs_level, b))
-        ntt_cmux.launches += 1
+        _cuda.count_launch(ntt_cmux, B=b, ks1=ks1, N=n, l=cfg.pbs_level,
+                           bl=cfg.pbs_base_log)
     return out
 
 
-ntt_cmux.launches = 0
+_cuda.counter(ntt_cmux)
 
 KERNELS = (ntt_cmux,)
 
@@ -255,9 +256,14 @@ def launch_counts() -> dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def shape_counts() -> dict[str, dict[str, int]]:
+    """Kernel launches per wrapper and shape key since the last reset."""
+    return {k.__name__: dict(k.shapes) for k in KERNELS}
+
+
 def reset_launch_counts():
     for k in KERNELS:
-        k.launches = 0
+        _cuda.counter(k)
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ transform's factor 2L leaves as a right shift.
 One CMux step, batch B, chunk-major accumulator acc [k+1, B, L, M]:
     rotdig_fwd_nuss (K7)  rotation by a_hat, digits, zero-pad, forward
                           transform, sub-digit split -> d8 [2L, B, R'*M] int8
-    build_tables (K1)     per-frequency toeplitz RHS -> [2L, R'*M, cols] int8
+    build_tables (K1)     per-frequency toeplitz RHS -> [2L, R'*M, cols] int8,
+                          each frequency's matrix column-major
     int_mm, per z         S[z] = d8[z] @ rhs[z]           -> [2L, B, cols] int32
     recombine_inv (K5) /  limb recombine, inverse transform, fold, /2L
     recombine_inv64 (K6)                                  -> [k+1, B, L, M]
@@ -194,12 +195,38 @@ class NussPlan:
         return 1 << (bsx.MxuPlan.SUB_CHUNK_BITS * (self.n_sub - 1 - sub))
 
 
+def _takes_ntt(cfg: ServerConfig) -> bool:
+    try:
+        cfg.primes
+    except (NotImplementedError, ValueError):
+        return False
+    return True
+
+
 def resolve_backend(cfg: ServerConfig, backend: str) -> str:
     """The bootstrap backend for `cfg`: "mxu", "nuss" or "ntt" when named
-    (and the backend takes the configuration), else for "auto" the first of
-    mxu (N <= 4096) and nuss whose plan accepts it, and "ntt" where neither
-    does: the JAX package's TPU order (concrete_tpu's ServerKey
-    .resolved_backend)."""
+    (and the backend takes the configuration), else for "auto", per torus:
+
+    - u32: "ntt" wherever `cfg.primes` takes the configuration, which is
+      concrete_tpu's rule off the TPU; else mxu (N <= 4096), then nuss. On
+      an H100 80GB HBM3 (700 W) the ntt AND ran 22,015 / 19,526 / 10,904
+      gates/s at TPU128 / DEFAULT / TFHE_LIB, B=2048, against mxu's 6,034 /
+      2,560 / 1,801, and K9's N=8192 step took 458 us at B=256 against
+      ~4.5 ms for a nuss step (chip_smoke.py).
+    - u64: mxu up to N = 4096, nuss above, ntt where neither plan takes
+      the configuration. This deviates on purpose from concrete_tpu's
+      off-TPU rule: the u64 ntt step has no kernel (three primes, a torch
+      composition) and ran 24.7-41.9 int4 PBS/s at B=256 against mxu's 825
+      at B=2048 on the same card.
+
+    >>> tpu128 = ServerConfig(lwe_dimension=630, glwe_dimension=4,
+    ...     polynomial_size=256, pbs_base_log=7, pbs_level=2, ks_base_log=2,
+    ...     ks_level=6)
+    >>> import dataclasses
+    >>> [resolve_backend(dataclasses.replace(tpu128, bits=b), "auto")
+    ...  for b in (32, 64)]
+    ['ntt', 'mxu']
+    """
     if backend == "mxu":
         bsx.MxuPlan.from_config(cfg)
         return backend
@@ -212,6 +239,8 @@ def resolve_backend(cfg: ServerConfig, backend: str) -> str:
     if backend != "auto":
         raise ValueError(f"backend {backend!r}: expected mxu, nuss, ntt or "
                          "auto")
+    if cfg.bits == 32 and _takes_ntt(cfg):
+        return "ntt"
     try:
         bsx.MxuPlan.from_config(cfg)
         return "mxu"
@@ -478,11 +507,13 @@ def rotdig_fwd_nuss(plan: NussPlan, acc_cm: torch.Tensor, a_hat: torch.Tensor,
             "ctt_rotdig_fwd_nuss64"
         _cuda.launch(entry, acc_cm, a_hat, out, b, ks1, plan.l, plan.m,
                      plan.base_log, plan.level, plan.n_sub)
-        rotdig_fwd_nuss.launches += 1
+        _cuda.count_launch(rotdig_fwd_nuss, B=b, ks1=ks1, L=plan.l, M=plan.m,
+                           bits=plan.bits, bl=plan.base_log, l=plan.level,
+                           n_sub=plan.n_sub)
     return out
 
 
-rotdig_fwd_nuss.launches = 0
+_cuda.counter(rotdig_fwd_nuss)
 
 
 # ---------------------------------------------------------------------------
@@ -563,7 +594,8 @@ def _recombine_launch(kernel, entry: str, plain, bits: int, plan: NussPlan,
         bsx._check_kernel_operands(plan.polynomial_size, s, out)
         _cuda.launch(entry, s, out, b, plan.glwe_size, plan.limbs_used,
                      plan.l, plan.m, plan.shift)
-        kernel.launches += 1
+        _cuda.count_launch(kernel, B=b, ks1=plan.glwe_size, L=plan.l, M=plan.m,
+                           limbs=plan.limbs_used)
     return out
 
 
@@ -585,8 +617,8 @@ def recombine_inv64(plan: NussPlan, s: torch.Tensor, *,
                              recombine_inv64_plain, 64, plan, s, out)
 
 
-recombine_inv.launches = 0
-recombine_inv64.launches = 0
+_cuda.counter(recombine_inv)
+_cuda.counter(recombine_inv64)
 
 KERNELS = (recombine_inv, recombine_inv64, rotdig_fwd_nuss)
 
@@ -596,9 +628,14 @@ def launch_counts() -> dict[str, int]:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def shape_counts() -> dict[str, dict[str, int]]:
+    """Kernel launches per wrapper and shape key since the last reset."""
+    return {k.__name__: dict(k.shapes) for k in KERNELS}
+
+
 def reset_launch_counts():
     for k in KERNELS:
-        k.launches = 0
+        _cuda.counter(k)
 
 
 # ---------------------------------------------------------------------------
@@ -611,8 +648,7 @@ def _step_buffers(plan: NussPlan, b: int, device):
     rows = plan.row_blocks * plan.m
     cols = plan.glwe_size * plan.limbs_used * plan.m
     d8 = torch.empty((plan.two_l, b, rows), dtype=torch.int8, device=device)
-    rhs = torch.empty((plan.two_l * rows, cols), dtype=torch.int8,
-                      device=device)
+    rhs = bsx.table_buffer(rows, cols, plan.two_l, device=device)
     s = torch.empty((plan.two_l, b, cols), dtype=torch.int32, device=device)
     return d8, rhs, s
 
@@ -621,8 +657,7 @@ def _dot_recombine_nuss(plan: NussPlan, rings, d8, rhs=None, s=None):
     """Per-frequency table build (K1) + one int8 product per frequency +
     recombine (K5 / K6): the tail of one CMux given d8 [2L, B, R'*M]."""
     rhs = bsx.build_tables(rings, plan.m, 0, plan.n_words, plan.limb_hi_drop,
-                           out=rhs)
-    rhs = rhs.view(plan.two_l, plan.row_blocks * plan.m, -1)
+                           groups=plan.two_l, out=rhs)
     if s is None:
         s = torch.empty((plan.two_l, d8.shape[1], rhs.shape[-1]),
                         dtype=torch.int32, device=d8.device)

@@ -200,53 +200,104 @@ __global__ void rotdig_recombine_kernel(const int32_t* __restrict__ s,
 // concrete_tpu/core/bootstrap_mxu.py:_build_tables_pallas.
 // rings [R, (k+1)*n_words, 2N] u32 word planes (n_words = 1 for the u32
 // torus, 2 for u64; 2 or 3 for the Nussbaumer rings, whose high limbs the
-// caller drops through n_kept) -> rhs [R*N, (k+1)*n_kept*N] i8: entry
-// (blk*N + r, (kj*n_kept + li)*N + c) = global byte g = limb_drop + li, i.e.
-// byte g % 4 of word plane kj*n_words + g / 4, of ring[blk, kj][(c - r) mod
-// 2N]. One block per output row; each thread makes 4 consecutive output
-// bytes from 4 consecutive ring words.
-// Bound on the card: pure HBM write bandwidth (the RHS is R*N x
-// (k+1)*n_kept*N bytes: 13 MB a step at TPU128, 101 MB for the u64 int4
-// configuration); a ring block is at most 64 KB and is read N times from
-// L1/L2, not from HBM. Design: every thread stores one 4-byte word, so each
-// warp writes 128 contiguous bytes; the caller keeps one output buffer for
-// the whole blind rotation.
-__global__ void build_tables_kernel(const uint32_t* __restrict__ rings,
-                                    int8_t* __restrict__ out, int ks1, int n,
-                                    int log2n, int n_kept, int limb_drop,
-                                    int n_words) {
-  const int rowi = blockIdx.x;
-  const int blk = rowi >> log2n;
-  const int r = rowi & (n - 1);
-  const int words = (ks1 * n_kept * n) >> 2;
-  const uint32_t* ring_blk =
-      rings + static_cast<size_t>(blk) * ks1 * n_words * 2 * n;
-  uint32_t* out_row = reinterpret_cast<uint32_t*>(
-      out + static_cast<size_t>(rowi) * ks1 * n_kept * n);
-  const uint32_t wrap = static_cast<uint32_t>(2 * n - 1);
-  for (int w = threadIdx.x; w < words; w += blockDim.x) {
-    const int c0 = (w << 2) & (n - 1);
-    const int t = (w << 2) >> log2n;  // kj * n_kept + li
-    const int kj = t / n_kept;
-    const int g = limb_drop + t - kj * n_kept;  // global limb 4*word + byte
-    const int shift = 8 * (g & 3);
-    const uint32_t* ring =
-        ring_blk + static_cast<size_t>(kj * n_words + (g >> 2)) * 2 * n;
-    uint32_t packed = 0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const uint32_t idx =
-          (static_cast<uint32_t>(c0 + q) - static_cast<uint32_t>(r)) & wrap;
-      packed |= ((__ldg(ring + idx) >> shift) & 0xFFu) << (8 * q);
-    }
-    out_row[w] = packed;
-  }
+// caller drops through n_kept) -> the toeplitz RHS, whose logical entry
+// (blk*N + r, (kj*n_kept + li)*N + c) is global byte g = limb_drop + li,
+// i.e. byte g % 4 of word plane kj*n_words + g / 4, of ring[blk, kj][(c - r)
+// mod 2N]. It is stored column-major, the layout cuBLASLt's int8 product
+// reads fastest: the R blocks split into `groups` consecutive groups of
+// Rg = R/groups (one per Nussbaumer frequency; 1 on the toeplitz path), and
+// out[grp][col][bl*N + r] holds the entry of row (grp*Rg + bl)*N + r.
+// Bound on the card: pure HBM write bandwidth (R*N x (k+1)*n_kept*N bytes:
+// 13 MB a step at TPU128, 101 MB for the u64 int4 configuration, 906 MB on
+// the int4 N=8192 Nussbaumer rings); the rings are read once.
+// Design: in column-major order a column's run over one ring block is a
+// contiguous window of the reversed 2N-cyclic byte plane of one ring word
+// plane: out[r] = P_j[(c - r) mod 2N]. A block owns one ring word plane and
+// a tile of C columns; it stages the N + C + 16 ring words the tile reads,
+// reversed and split into the 4 byte planes (a 4 x 4 byte transpose by
+// __byte_perm), in shared memory once. Each thread then makes 16 output
+// bytes from two aligned 16-byte shared loads and four __funnelshift_r, and
+// stores them as one 16-byte vector; consecutive lanes take consecutive
+// 16-byte pieces of one column's run, so a warp writes up to 512
+// contiguous bytes. No gather per byte and no reread of the ring from L2.
+constexpr int kTableThreads = 256;
+
+__device__ __forceinline__ void transpose4x4(uint32_t a, uint32_t b,
+                                             uint32_t c, uint32_t d,
+                                             uint32_t out[4]) {
+  const uint32_t t0 = __byte_perm(a, b, 0x5140);  // a0 b0 a1 b1
+  const uint32_t t1 = __byte_perm(a, b, 0x7362);  // a2 b2 a3 b3
+  const uint32_t t2 = __byte_perm(c, d, 0x5140);
+  const uint32_t t3 = __byte_perm(c, d, 0x7362);
+  out[0] = __byte_perm(t0, t2, 0x5410);  // a0 b0 c0 d0
+  out[1] = __byte_perm(t0, t2, 0x7632);  // a1 b1 c1 d1
+  out[2] = __byte_perm(t1, t3, 0x5410);
+  out[3] = __byte_perm(t1, t3, 0x7632);
 }
 
-int log2_int(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
+__global__ void __launch_bounds__(kTableThreads) build_tables_kernel(
+    const uint32_t* __restrict__ rings, int8_t* __restrict__ out, int ks1,
+    int n, int n_kept, int limb_drop, int n_words, int rg, int tile) {
+  extern __shared__ uint4 stage4[];
+  const int plane = blockIdx.z;  // kj * n_words + w
+  const int kj = plane / n_words;
+  const int w = plane - kj * n_words;
+  // kept bytes j of this word: global limb 4w + j in [limb_drop,
+  // limb_drop + n_kept)
+  const int j_lo = max(limb_drop - 4 * w, 0);
+  const int j_hi = min(limb_drop + n_kept - 4 * w, 4);
+  if (j_hi <= j_lo) return;
+  const int blk = blockIdx.y;
+  const int c0 = blockIdx.x * tile;
+  const int v_words = (n + tile + 16) / 4;  // staged bytes per byte plane / 4
+  uint32_t* stage = reinterpret_cast<uint32_t*>(stage4);
+  const uint32_t* ring =
+      rings + (static_cast<size_t>(blk) * ks1 * n_words + plane) * 2 * n;
+  // stage[j][v] = byte j of ring[(c0 + tile - 1 - v) mod 2N]
+  const uint32_t wrap = static_cast<uint32_t>(2 * n - 1);
+  const uint32_t c_hi = static_cast<uint32_t>(c0 + tile - 1);
+  for (int k = threadIdx.x; k < v_words; k += blockDim.x) {
+    const uint32_t v = 4u * k;
+    uint32_t t[4];
+    transpose4x4(__ldg(ring + ((c_hi - v) & wrap)),
+                 __ldg(ring + ((c_hi - v - 1u) & wrap)),
+                 __ldg(ring + ((c_hi - v - 2u) & wrap)),
+                 __ldg(ring + ((c_hi - v - 3u) & wrap)), t);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) stage[j * v_words + k] = t[j];
+  }
+  __syncthreads();
+  const int chunks = n / 16;
+  const int tasks = (j_hi - j_lo) * tile * chunks;
+  const int grp = blk / rg;
+  const size_t rows = static_cast<size_t>(rg) * n;
+  const size_t cols = static_cast<size_t>(ks1) * n_kept * n;
+  int8_t* out_blk = out + grp * cols * rows + (blk - grp * rg) * n;
+  for (int it = threadIdx.x; it < tasks; it += blockDim.x) {
+    const int chunk = it % chunks;
+    const int rest = it / chunks;
+    const int cl = rest % tile;
+    const int j = j_lo + rest / tile;
+    const int base = tile - 1 - cl + 16 * chunk;  // out[16*chunk] = stage[j][base]
+    const uint4* src = stage4 + (j * v_words) / 4 + (base >> 4);
+    const uint4 x = src[0], y = src[1];
+    const uint32_t wv[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+    const int q = (base >> 2) & 3;
+    const int sh = 8 * (base & 3);
+    uint32_t v[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      v[i] = q == 0 ? wv[i] : q == 1 ? wv[i + 1] : q == 2 ? wv[i + 2] : wv[i + 3];
+    }
+    uint4 o;
+    o.x = __funnelshift_r(v[0], v[1], sh);
+    o.y = __funnelshift_r(v[1], v[2], sh);
+    o.z = __funnelshift_r(v[2], v[3], sh);
+    o.w = __funnelshift_r(v[3], v[4], sh);
+    const int li = 4 * w + j - limb_drop;
+    const size_t col = static_cast<size_t>(kj * n_kept + li) * n + c0 + cl;
+    *reinterpret_cast<uint4*>(out_blk + col * rows + 16 * chunk) = o;
+  }
 }
 
 int row_threads(int n) {  // one thread per 4 coefficients, at most 1024
@@ -274,14 +325,20 @@ const char* ctt_error_string(int err) {
 }
 
 int ctt_build_tables(const void* rings, void* out, int r_blocks, int ks1,
-                     int n, int n_kept, int limb_drop, int n_words,
+                     int n, int n_kept, int limb_drop, int n_words, int groups,
                      void* stream) {
-  const int words = (ks1 * n_kept * n) / 4;
-  const int threads = words < 256 ? words : 256;
-  build_tables_kernel<<<r_blocks * n, threads, 0,
+  if (n % 16 || groups < 1 || r_blocks % groups) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int tile = n < 32 ? n : 32;  // columns a block
+  // 4 staged byte planes: 16.6 KB at N = 4096, the largest ring
+  const size_t smem = static_cast<size_t>(4) * (n + tile + 16);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  build_tables_kernel<<<dim3(n / tile, r_blocks, ks1 * n_words),
+                        kTableThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rings), static_cast<int8_t*>(out), ks1, n,
-      log2_int(n), n_kept, limb_drop, n_words);
+      n_kept, limb_drop, n_words, r_blocks / groups, tile);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -142,9 +142,11 @@ class LWEBSK:
     def resolved_backend(self) -> str:
         """"mxu", "nuss" or "ntt" (bootstrap_nuss.resolve_backend): `backend`
         when named, else "mxu" up to N = 4096, "nuss" above and "ntt" where
-        neither takes the configuration. On the u64 torus the ntt backend
-        needs three or more CRT primes, so its CMux step is the torch
-        composition, never the two-prime kernel K9."""
+        neither takes the configuration. This keeps the toeplitz paths on
+        the u64 torus on purpose, where concrete_tpu picks ntt off the TPU:
+        there the ntt backend needs three or more CRT primes, so its CMux
+        step is the torch composition, never the two-prime kernel K9, and it
+        ran 20-33x slower than mxu per PBS on an H100."""
         return bsn.resolve_backend(self.cfg, self.backend)
 
     def with_fast_mode(self, *, limb_drop: int = 2,

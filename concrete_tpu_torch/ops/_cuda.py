@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # entry point -> (library, pointer arguments, int arguments); the stream
 # comes last
 _SIGNATURES = {
-    "ctt_build_tables": ("mxu_kernels", 2, 6),
+    "ctt_build_tables": ("mxu_kernels", 2, 7),
     "ctt_rotdig": ("mxu_kernels", 3, 6),
     "ctt_rotdig64": ("mxu_kernels", 3, 6),
     "ctt_rotdig_recombine": ("mxu_kernels", 5, 8),
@@ -134,6 +134,29 @@ def load_all():
     build_all()
     for name in SOURCES:
         library(name)
+
+
+def counter(kernel):
+    """Give a kernel wrapper its launch counts: `launches`, the total, and
+    `shapes`, {shape key: launches}. Returns the wrapper."""
+    kernel.launches = 0
+    kernel.shapes = {}
+    return kernel
+
+
+def count_launch(kernel, **shape):
+    """Count one launch of `kernel`'s CUDA kernel, in total and under its
+    shape key ("B=256 L=32 ...", the fields in the order given).
+
+    >>> def k(): pass
+    >>> k = counter(k)
+    >>> count_launch(k, B=2, N=8); count_launch(k, B=2, N=8)
+    >>> k.launches, k.shapes
+    (2, {'B=2 N=8': 2})
+    """
+    kernel.launches += 1
+    key = " ".join(f"{f}={v}" for f, v in shape.items())
+    kernel.shapes[key] = kernel.shapes.get(key, 0) + 1
 
 
 def launch(name: str, *args):

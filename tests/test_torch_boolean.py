@@ -121,7 +121,7 @@ def test_gate_batches_broadcast_and_pad(port_keys):
     np.testing.assert_array_equal(torus.to_numpy(grid[1]), want)
     warm = boolean_t.ServerKey.from_arrays(
         sks.bsk_standard, sks.ksk, cks.parameters, device="cpu")
-    assert set(warm.warmup([16])) == {16}
+    assert set(warm.warmup([16])) == {("and", 16)}
     np.testing.assert_array_equal(torus.to_numpy(warm.and_(a, b)), want)
     assert tuple(sks.and_(a[:0], b[:0]).shape) == (0, a.shape[-1])
 
@@ -147,7 +147,8 @@ def test_server_key_rejects_mismatched_arrays(port_keys):
     large = boolean_t.ServerKey.from_arrays(
         np.zeros((4, 2, 2, 2, 8192), np.uint32),
         np.zeros((8192, 2, 5), np.uint32), big, device="cpu")
-    assert large.resolved_backend() == "nuss"
+    assert large.resolved_backend() == "ntt"
+    assert dataclasses.replace(large, backend="nuss").resolved_backend() == "nuss"
     with pytest.raises(NotImplementedError):          # O(N^2) table
         dataclasses.replace(large, backend="mxu").resolved_backend()
     assert dataclasses.replace(large, backend="ntt").resolved_backend() == "ntt"
@@ -161,7 +162,7 @@ def test_fast_mode_gates_match_jax(jax_keys, gate, fast):
     package's fast-mode key on its mxu backend."""
     _, sks_j, _, sks_t, (a, b, c) = jax_keys
     fast_j = dataclasses.replace(sks_j, backend="mxu").with_fast_mode(**fast)
-    fast_t = sks_t.with_fast_mode(**fast)
+    fast_t = dataclasses.replace(sks_t, backend="mxu").with_fast_mode(**fast)
     assert fast_t.cfg.pbs_level == fast_j.cfg.pbs_level
     assert fast_t.cfg.mxu_limb_drop == fast_j.cfg.mxu_limb_drop
     assert fast_t.bsk_standard.shape == fast_j.bsk_standard.shape

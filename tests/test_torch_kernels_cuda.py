@@ -187,6 +187,7 @@ def test_gates_on_gpu_match_cpu(dev):
                              StandardDev(2.0 ** -25), 8, 2, 4, 3)
     cks, sks = boolean.gen_keys(tiny, secret_seed=1, mask_seed=2, noise_seed=3,
                                 device=dev)
+    sks = dataclasses.replace(sks, backend="mxu")   # "auto" picks ntt on u32
     cpu = sks.to("cpu")
     rng = np.random.default_rng(4)
     a, b, c = (rng.integers(0, 2, size=40).astype(bool) for _ in range(3))
@@ -317,6 +318,79 @@ def test_nuss_blind_rotation_on_gpu_matches_cpu(dev, bits, n, l, bl, lv):
     assert counts["rotdig_fwd_nuss"] == 6
     assert counts["recombine_inv" if bits == 32 else "recombine_inv64"] == 6
     assert torch.equal(got.cpu(), want)
+
+
+# K7 beyond phase A's shapes: root = 1 (M = L) with 2L < 32 lanes a class
+# group, the TFHE_LIB ring at B = 2048 (8 polynomials a block, a partial
+# last block), M = 2048 (several classes a lane group), a u64 state wider
+# than 32 bits, and N = 16384 with that state and n_sub 3, whose sub-digit
+# planes are staged one at a time
+K7_SHAPES = [(2, 64, 8, 7, 2, 5, 32), (2, 256, 16, 7, 2, 3, 32),
+             (2, 1024, 32, 7, 3, 2048, 32), (2, 1024, 32, 7, 3, 2047, 64),
+             (2, 16384, 8, 2, 3, 2, 32), (2, 16384, 8, 2, 3, 2, 64),
+             (2, 8192, 32, 16, 3, 2, 64), (2, 16384, 32, 16, 3, 2, 64),
+             (3, 4096, 16, 10, 2, 3, 64)]
+
+
+@pytest.mark.parametrize("ks1,n,l,bl,lv,b,bits", K7_SHAPES)
+def test_rotdig_fwd_nuss_kernel_shapes(dev, ks1, n, l, bl, lv, b, bits):
+    plan = _nuss_plan(ks1, n, l, bl, lv, bits)
+    rng = np.random.default_rng(n + l + bl + b)
+    shape = (ks1, b, l, n // l)
+    acc = (_u32(rng, shape, dev) if bits == 32
+           else _u64(rng, (ks1, b, n), dev).view(shape))
+    a_hat = _degrees(rng, n, b, dev)
+    bsn.reset_launch_counts()
+    got = bsn.rotdig_fwd_nuss(plan, acc, a_hat)
+    assert bsn.launch_counts()["rotdig_fwd_nuss"] == 1
+    assert list(bsn.rotdig_fwd_nuss.shapes.values()) == [1]
+    torch.cuda.synchronize()
+    assert torch.equal(got, bsn.rotdig_fwd_nuss_plain(plan, acc, a_hat))
+
+
+# K1's column-major table at every word-plane count and limb drop, one
+# matrix or one per group (the Nussbaumer frequencies)
+K1_SHAPES = [(4, 2, 64, 1, 0, 0, 1), (10, 5, 256, 1, 1, 0, 1),
+             (6, 2, 1024, 2, 0, 0, 1), (6, 2, 1024, 2, 2, 0, 1),
+             (12, 2, 256, 2, 5, 0, 1), (12, 2, 16, 2, 0, 3, 4),
+             (64 * 12, 2, 32, 2, 0, 3, 64), (12 * 8, 2, 256, 3, 0, 3, 8),
+             (6, 3, 512, 3, 0, 3, 2), (2, 2, 4096, 1, 2, 0, 1)]
+
+
+@pytest.mark.parametrize("r,ks1,n,nw,drop,hd,groups", K1_SHAPES)
+def test_build_tables_column_major(dev, r, ks1, n, nw, drop, hd, groups):
+    rings = _u32(np.random.default_rng(r + n + drop), (r, ks1 * nw, 2 * n), dev)
+    nk = 4 * nw - drop - hd
+    rows, cols = r // groups * n, ks1 * nk * n
+    out = bsx.table_buffer(rows, cols, groups, device=dev)
+    bsx.reset_launch_counts()
+    got = bsx.build_tables(rings, n, drop, nw, hd, groups=groups, out=out)
+    assert got is out and bsx.build_tables.launches == 1
+    want = bsx.build_tables_plain(rings, n, drop, nw, hd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want.view(got.shape))
+    # the product reads the column-major table as it is
+    d8 = torch.from_numpy(np.random.default_rng(n).integers(
+        -64, 65, size=(64, rows), dtype=np.int8)).to(dev)
+    rhs = got if groups == 1 else got[-1]
+    plain = want if groups == 1 else want.view(got.shape)[-1]
+    assert torch.equal(bsx.int_mm(d8, rhs), bsx.int_mm(d8, plain.contiguous()))
+
+
+def test_build_tables_refuses_a_row_major_out(dev):
+    rings = _u32(np.random.default_rng(0), (2, 2, 128), dev)
+    with pytest.raises(ValueError):
+        bsx.build_tables(rings, 64, out=torch.empty((128, 512), dtype=torch.int8,
+                                                    device=dev))
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 2524, 13), (17, 40, 24), (64, 2560, 5120)])
+def test_int_mm_column_major_padding_is_exact(dev, m, k, n):
+    rng = np.random.default_rng(m + k)
+    a = torch.from_numpy(rng.integers(-128, 128, size=(m, k), dtype=np.int8))
+    b = torch.from_numpy(rng.integers(-128, 128, size=(n, k), dtype=np.int8)).t()
+    got = bsx.int_mm(a.to(dev), b.to(dev)).cpu()
+    assert torch.equal(got, torch._int_mm(a, b.contiguous()))
 
 
 def test_nuss_beyond_the_kernel_envelope_runs_the_plain_composition(dev):

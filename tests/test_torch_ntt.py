@@ -398,7 +398,7 @@ def test_highlevel_bsk_on_ntt_matches_jax(tmp_path):
 def test_resolve_backend_takes_ntt():
     _, tiny = _cfgs(4, 1, 64, 7, 2)
     assert bsn_t.resolve_backend(tiny, "ntt") == "ntt"
-    assert bsn_t.resolve_backend(tiny, "auto") == "mxu"
+    assert bsn_t.resolve_backend(tiny, "auto") == "ntt"
     # N = 8192 with k + 1 = 401: mxu refuses N > 4096 and every Nussbaumer
     # chunking passes the int32 accumulation bound; the ntt backend takes it
     _, wide = _cfgs(4, 400, 8192, 2, 3)

@@ -137,7 +137,8 @@ def test_server_key_nuss_gates_match_jax(tiny_keys, gate):
     backend's ciphertexts."""
     cks_j, sks_j, cks_t, sks_t = tiny_keys
     nuss = dataclasses.replace(sks_t, backend="nuss")
-    assert nuss.resolved_backend() == "nuss" and sks_t.resolved_backend() == "mxu"
+    assert nuss.resolved_backend() == "nuss" and sks_t.resolved_backend() == "ntt"
+    sks_t = dataclasses.replace(sks_t, backend="mxu")
     a, b = np.array([False, True, False, True]), np.array([False, False, True, True])
     ca = cks_j.encrypt(a, mask_seed=20, noise_seed=21)
     cb = cks_j.encrypt(b, mask_seed=22, noise_seed=23)
@@ -173,7 +174,8 @@ def test_entry_points_resolve_nuss_at_large_n():
         np.zeros((8192, 2, 5), np.uint32),
         bs_t.ServerConfig(4, 1, 8192, 7, 2, 2, 2), np.zeros((4, 2, 2, 2, 8192),
                                                             np.uint32), "cpu")
-    assert big.resolved_backend() == "nuss"
+    assert big.resolved_backend() == "ntt"
+    assert dataclasses.replace(big, backend="nuss").resolved_backend() == "nuss"
     for n in (8192, 16384):
         bsk = hl_t.LWEBSK(hl_t.LWEBSK._config(2, 1, n, 7, 3), 2.0 ** -100,
                           np.zeros((2, 3, 2, 2, n), np.uint64), device="cpu")
