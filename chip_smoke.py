@@ -64,7 +64,9 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           beside the unfused ones; one profiled TPU128 call each of the ntt
           AND and the fused AND. K8 and K9 must launch.
 
-Every phase logs its kernels' launches per shape key (launches_by_shape).
+Every phase logs its kernels' launches per shape key (launches_by_shape);
+after the phases, each phase-A row of K5-K7 is logged beside the
+launches of its shape key on the main paths (A_launches).
 The last lines are the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line and {"ok": true, "device": {...}}. Any failure
 raises, so the exit code is non-zero and no result line is printed.
@@ -177,6 +179,10 @@ INT4_NTT_BATCH = 256
 
 
 _COUNTED = (bsx, bsn, bsntt)
+# phase -> {kernel: {shape key: launches}} of its main path (read_launches),
+# and phase A's rows that name a shape key (kernel, label, key, ms, bound)
+PATH_SHAPES: dict[str, dict[str, dict[str, int]]] = {}
+KEYED_ROWS: list[tuple[str, str, str, float, float]] = []
 
 
 def reset_launch_counts():
@@ -193,6 +199,7 @@ def read_launches(phase: str) -> dict[str, int]:
     shape key as well (the wrappers' `shapes`)."""
     shapes = {k: v for mod in _COUNTED for k, v in mod.shape_counts().items()
               if v}
+    PATH_SHAPES[phase] = shapes
     log(phase=phase, launches_by_shape=shapes)
     return launch_counts()
 
@@ -421,7 +428,8 @@ def nuss_config(n: int, bits: int, base_log: int, level: int,
 def nuss_kernel_cases(dev, rng, u32, u64, degrees):
     """Phase A's Nussbaumer rows at the phase-D shapes (k+1=2, L=32): K5 at
     the u32 N=8192 and 16384 engine shapes (B=256) and on the TFHE_LIB ring
-    (N=1024, M=32, B=2048), K6 at u64 N=8192, K7 at u32 N=8192 (n_sub 1),
+    (N=1024, M=32, B=2048), K6 at u64 N=8192 (the engine and int4 N=8192
+    shape) and 16384, K7 at u32 N=8192 (n_sub 1),
     at base_log 7 (n_sub 2, u32 and the u64 int4 cell) and on the TFHE_LIB
     ring (n_sub 2, B=2048), K1 on the u64 N=8192 engine rings (3 word
     planes, 9 limbs), the int4 N=8192 rings (n_sub 2: the 906 MB table) and
@@ -439,7 +447,8 @@ def nuss_kernel_cases(dev, rng, u32, u64, degrees):
     tfhe_lib = bsn.NussPlan.from_config(
         bs.ServerConfig.from_boolean_parameters(PRESETS["TFHE_LIB"]))
     for plan, bb in [(bsn.NussPlan.from_config(nuss_config(n, bits, *NUSS_ENGINE["pbs"])), b)
-                     for n, bits in ((8192, 32), (16384, 32), (8192, 64))] + [
+                     for n, bits in ((8192, 32), (16384, 32), (8192, 64),
+                                     (16384, 64))] + [
                          (tfhe_lib, NUSS_GATE_ROWS)]:
         bits = plan.bits
         kernel, plain = ((bsn.recombine_inv, bsn.recombine_inv_plain) if bits == 32
@@ -450,7 +459,9 @@ def nuss_kernel_cases(dev, rng, u32, u64, degrees):
         cases.append((kernel.__name__,
                       f"u{bits} N={plan.polynomial_size} L={plan.l} M={plan.m} B={bb}",
                       lambda k=kernel, p=plan, s=s, o=out: k(p, s, out=o),
-                      lambda f=plain, p=plan, s=s: f(p, s), (s,)))
+                      lambda f=plain, p=plan, s=s: f(p, s), (s,),
+                      {"key": f"B={bb} ks1={plan.glwe_size} L={plan.l} "
+                              f"M={plan.m} limbs={plan.limbs_used}"}))
     k7_plans = [(bsn.NussPlan.from_config(nuss_config(8192, bits, bl, lv)), b)
                 for bits, (bl, lv) in ((32, NUSS_ENGINE["pbs"]), (32, INT4["pbs"]),
                                        (64, INT4["pbs"]))]
@@ -468,7 +479,10 @@ def nuss_kernel_cases(dev, rng, u32, u64, degrees):
             f"l={plan.level} n_sub={plan.n_sub} B={bb}",
             lambda p=plan, acc=acc, a=a_hat, d8=d8: bsn.rotdig_fwd_nuss(p, acc, a, out=d8),
             lambda p=plan, acc=acc, a=a_hat: bsn.rotdig_fwd_nuss_plain(p, acc, a),
-            (acc, a_hat)))
+            (acc, a_hat),
+            {"key": f"B={bb} ks1={plan.glwe_size} L={plan.l} M={plan.m} "
+                    f"bits={bits} bl={plan.base_log} l={plan.level} "
+                    f"n_sub={plan.n_sub}"}))
     int4_8192 = bsn.NussPlan.from_config(dataclasses.replace(
         _int4_config(*INT4["pbs"]),
         polynomial_size=INT4_8192["rlwe"].polynomial_size))
@@ -546,6 +560,8 @@ def phase_a(dev, card):
         log(phase="A", kernel=kernel, shape=label, equal=True, max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
             **more, card=card)
+        if "key" in extra:
+            KEYED_ROWS.append((kernel, label, extra["key"], ms, bound))
         row = rows.setdefault(kernel, {"ms": ms, "plain_ms": plain_ms,
                                        "bound_ms": bound, "bound_by": bound_by,
                                        "max_abs_err": 0})
@@ -640,8 +656,9 @@ _KERNEL_KINDS = (("ntt_cmux_kernel", "K9 ntt_cmux"),
                  ("rotdig_recombine", "K3 rotdig_recombine"),
                  ("rotdig_kernel<unsigned long", "K4 rotdig64"),
                  ("rotdig_kernel<unsigned int", "K2 rotdig"),
-                 ("recombine_inv_kernel<unsigned __int128", "K6 recombine_inv64"),
-                 ("recombine_inv_kernel", "K5 recombine_inv"),
+                 ("recombine_inv_kernel<unsigned long, unsigned int",
+                  "K5 recombine_inv"),
+                 ("recombine_inv_kernel", "K6 recombine_inv64"),
                  ("rotdig_fwd_nuss_kernel", "K7 rotdig_fwd_nuss"),
                  ("gemm", "int8 GEMM"), ("cutlass", "int8 GEMM"))
 
@@ -1193,6 +1210,19 @@ def phase_e(dev, card):
     return launches
 
 
+def log_row_launches():
+    """Each keyed phase-A row beside the launches of its shape key on the
+    main paths that run its kernel (phases B-E) and launches x (ms - bound
+    ms), the time the card could save there."""
+    for kernel, label, key, ms, bound in KEYED_ROWS:
+        n = sum(shapes.get(kernel, {}).get(key, 0)
+                for path, shapes in PATH_SHAPES.items()
+                if kernel in PATH_KERNELS[path])
+        log(phase="A_launches", kernel=kernel, shape=label, key=key,
+            launches=n, ms=ms, bound_ms=bound,
+            launches_x_gap_s=n * (ms - bound) * 1e-3)
+
+
 def check_launched(path: str, launches: dict):
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
@@ -1254,6 +1284,7 @@ def main():
             check_launched(path, path_launches[path])
             torch.cuda.empty_cache()
     log(phase="all", seconds=time.perf_counter() - t_all)
+    log_row_launches()
 
     launches = {k: sum(counts[k] for path, counts in path_launches.items()
                        if k in PATH_KERNELS[path]) for k in REPLACES}

@@ -11,23 +11,20 @@
 // the M axis by a multiple of root = M/L. So the M axis splits into `root`
 // residue classes (j mod root) that no twiddle mixes: a class is L values
 // per chunk, and a rotation by root*e moves position k of a class to
-// k + e (mod 2L, negated past L). K5 / K6 keep a group of G classes of
-// all 2L chunks in shared memory, which bounds shared memory whatever N:
-// [2L][L][G] values. Only the fold of K5 / K6 (times Z = a rotation by 1)
-// reads the neighbouring class; the first class of a group takes it from
-// the previous group (kept in a side buffer), and class 0, which needs the
-// last class, is folded at the end. A K5 / K6 butterfly stage reads two
-// rows and writes two rows whose positions differ (the twiddle moves k), so
-// each thread holds its results in registers until every thread has read:
-// read phase, barrier, write phase. K7 holds a class in the registers of L
-// lanes instead and rotates with warp shuffles (see its note).
+// k + e (mod 2L, negated past L). Both kernels hold a class in the
+// registers of L lanes (lane k: position k*root + r of its rows) and rotate
+// with warp shuffles. Only the fold of K5 / K6 (times Z = a rotation by 1)
+// reads the neighbouring class (class 0 reads class root-1, one position
+// down); see K5's note for how it reaches it.
 //
 // Envelope: the wrappers launch these for 2L <= 64 (KERNEL_TWO_L_MAX, every
-// chunking best_l picks): L*L*G <= kMaxItems * kThreads holds there for K5
-// / K6; K7 takes L in {2, ..., 32} and M a power of two, a multiple of 4.
+// chunking best_l picks): K5 / K6 and K7 take L in {2, ..., 32} and M a
+// power of two; K5 / K6 M up to 8192 at L <= 8, 4096 at L = 16 (and K6 at
+// L = 32), 2048 for K5 at L = 32 (every N <= 16384 at every L); K7 M a
+// multiple of 4.
 //
-// Torus arithmetic is unsigned (uint32_t, uint64_t, unsigned __int128),
-// whose wrap is defined. Built by concrete_tpu_torch/ops/_cuda.py:
+// Torus arithmetic is unsigned (uint32_t, uint64_t, a 96-bit pair), whose
+// wrap is defined. Built by concrete_tpu_torch/ops/_cuda.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libnuss_kernels.so nuss_kernels.cu
 // Each extern "C" entry point launches one kernel on the given stream and
@@ -37,6 +34,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,157 +42,402 @@ namespace {
 typedef unsigned __int128 u128;
 
 constexpr int kSubChunkBits = 7;  // MxuPlan.SUB_CHUNK_BITS
-constexpr int kThreads = 1024;
-// butterflies a thread holds per stage: 8 of 4- and 8-byte values, 4 of
-// 16-byte ones (K6), so that 1024 threads keep them in 64 registers each
-constexpr int kMaxItems = 8;
-// shared-memory budgets (bytes) of the class-group buffers
-constexpr size_t kRecombineSmem = 128 * 1024;
 constexpr size_t kSmemMax = 227 * 1024;
 constexpr int kK7Threads = 256;  // K7's block
+// K5 / K6: a block's threads at L = 32 (2L a class slot; K5 two blocks an
+// SM at 128 registers a thread, K6 one block of 512 at 128), the rows
+// whose limbs a thread loads at once, the largest cluster
+// (tools/k56_sweep.py times the alternatives)
+constexpr int kRecThreads = 256;
+constexpr int kRecThreads64 = 512;
+constexpr int kRecBatch = 4;
+constexpr int kClusterMax = 16;
 
 __device__ __forceinline__ int log2_dev(int v) { return 31 - __clz(v); }
 
-// K5 / K6 store: the low word of v / 2L.
-template <typename Out, typename V>
-__device__ __forceinline__ Out shifted(V v, int shift) {
-  return static_cast<Out>(v >> shift);
+template <int L>
+struct Log2 {
+  static constexpr int value = L <= 1 ? 0 : 1 + Log2<L / 2>::value;
+};
+template <>
+struct Log2<1> {
+  static constexpr int value = 0;
+};
+
+// K6's value: exact mod 2^96 (the kernel needs 2^(64 + shift) <= 2^70),
+// one 64-bit and one 32-bit word. K5's is a uint64_t (it needs 2^38). The
+// u128 forms below are what tools/k56_sweep.py measures U96 against.
+struct U96 {
+  uint64_t lo;
+  uint32_t hi;
+};
+using K6Value = U96;
+
+__device__ __forceinline__ U96 operator+(U96 a, U96 b) {
+  U96 r;
+  r.lo = a.lo + b.lo;
+  r.hi = a.hi + b.hi + (r.lo < a.lo ? 1u : 0u);
+  return r;
+}
+__device__ __forceinline__ U96 operator-(U96 a, U96 b) {
+  U96 r;
+  r.lo = a.lo - b.lo;
+  r.hi = a.hi - b.hi - (a.lo < b.lo ? 1u : 0u);
+  return r;
+}
+__device__ __forceinline__ U96 neg(U96 v) { return U96{0, 0} - v; }
+__device__ __forceinline__ uint64_t neg(uint64_t v) { return 0 - v; }
+__device__ __forceinline__ u128 neg(u128 v) { return 0 - v; }
+
+// v = sum_j sext(w[j]) << 8j, the limb recombine
+template <int LU>
+__device__ __forceinline__ void recombine(const int32_t (&w)[LU], uint64_t& v) {
+  v = 0;
+#pragma unroll
+  for (int j = 0; j < LU; ++j) {
+    v += static_cast<uint64_t>(static_cast<int64_t>(w[j])) << (8 * j);
+  }
+}
+template <int LU>
+__device__ __forceinline__ void recombine(const int32_t (&w)[LU], u128& v) {
+  v = 0;
+#pragma unroll
+  for (int j = 0; j < LU; ++j) {
+    v += static_cast<u128>(static_cast<__int128>(w[j])) << (8 * j);
+  }
+}
+// K6's nine limbs as a + b * 2^32 + w[8] * 2^64: limbs 0-3 and 4-7 sum
+// exactly in int64 (|a|, |b| < 2^57), one carry joins them
+template <int LU>
+__device__ __forceinline__ void recombine(const int32_t (&w)[LU], U96& v) {
+  static_assert(LU == 9, "K6 recombines 9 limbs");
+  int64_t a = 0, b = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a += static_cast<int64_t>(w[j]) * (int64_t{1} << (8 * j));
+    b += static_cast<int64_t>(w[j + 4]) * (int64_t{1} << (8 * j));
+  }
+  v.lo = static_cast<uint64_t>(a) + (static_cast<uint64_t>(b) << 32);
+  v.hi = static_cast<uint32_t>(a >> 63) + static_cast<uint32_t>(b >> 32) +
+         static_cast<uint32_t>(w[8]) +
+         (v.lo < static_cast<uint64_t>(a) ? 1u : 0u);
 }
 
-// K5 recombine_inv (V = uint64_t, Out = uint32_t). Replaces
-// concrete_tpu/core/bootstrap_nuss.py:_recombine_inv_pallas.
-// K6 recombine_inv64 (V = unsigned __int128, Out = uint64_t). Replaces
-// concrete_tpu/core/bootstrap_nuss.py:_recombine_inv_pallas64.
-// s [2L, B, (k+1)*lu*M] i32 -> out [k+1, B, L, M] u32 / u64, chunk-major:
-//   v[z][c] = sum_j sext(s[z, b, (kj*lu + j)*M + c]) << 8j   (mod 2^64 / 2^128)
-//   inverse 2L-point transform over z (twiddles Z^(-root*j*2^st)),
-//   fold out_t = c_t + Z*c_{t+L}, then out = low word of (v >> shift).
-// The TPU kernels carry these values in u32 word pairs (K5) and 96-bit
-// triples emitted as two u32 planes (K6), because the TPU has no 64-bit
-// lanes; here they are uint64_t (w' = 32 + shift <= 40 bits) and unsigned
-// __int128 (w' = 64 + shift), and K6 writes the int64 words directly.
-// One block per (lane b, output polynomial kj).
-// Bound on the card: HBM reads of s, lu*4 bytes per (frequency,
-// coefficient) against 4 (K5) or 8 (K6) bytes written per output
-// coefficient; the transform is log2(2L) adds a value. Design: s is read
-// once, in runs of G consecutive words, into the class-group buffer; the
-// whole transform and the fold stay in shared memory.
-template <typename V, typename Out, int kItems>
-__global__ void __launch_bounds__(kThreads) recombine_inv_kernel(
-    const int32_t* __restrict__ s, Out* __restrict__ out, int batch, int ks1,
-    int lu, int l, int m, int g, int shift) {
-  extern __shared__ uint4 smem[];
-  V* x = reinterpret_cast<V*>(smem);  // [2L][L][G]
-  const int two_l = 2 * l;
-  const int root = m / l;
-  const int n_grp = root / g;
-  const int lg = l * g;
-  const int items = l * lg;
-  V* side_hi = x + two_l * lg;        // [L][L]: rows L.. of the previous class
-  V* side_lo0 = side_hi + l * l;      // [L][L]: rows ..L of class 0, unfolded
-  // every extent is a power of two: indices split with shifts and masks
-  const int log2l = log2_dev(l);
-  const int log2g = log2_dev(g);
-  const int log2lg = log2l + log2g;
-  const int stages = log2l + 1;
-  const int b = blockIdx.x;
-  const int kj = blockIdx.y;
-  const size_t z_stride = static_cast<size_t>(batch) * ks1 * lu * m;
-  const int32_t* s_b = s + (static_cast<size_t>(b) * ks1 + kj) * lu * m;
-  Out* out_b = out + (static_cast<size_t>(kj) * batch + b) * l * m;
+// the stored word: the low 32 / 64 bits of v >> shift (0 < shift < 32)
+__device__ __forceinline__ uint64_t shifted(uint64_t v, int shift) {
+  return v >> shift;
+}
+__device__ __forceinline__ uint64_t shifted(U96 v, int shift) {
+  return (v.lo >> shift) | (static_cast<uint64_t>(v.hi) << (64 - shift));
+}
+__device__ __forceinline__ uint64_t shifted(u128 v, int shift) {
+  return static_cast<uint64_t>(v >> shift);
+}
 
-  for (int grp = 0; grp < n_grp; ++grp) {
-    const int r0 = grp * g;
-    // limb recombine into the class-group buffer
-    for (int idx = threadIdx.x; idx < two_l * lg; idx += blockDim.x) {
-      const int z = idx >> log2lg;
-      const int k = (idx & (lg - 1)) >> log2g;
-      const int rl = idx & (g - 1);
-      const int32_t* src = s_b + z * z_stride + k * root + r0 + rl;
-      V v = 0;
-      for (int j = 0; j < lu; ++j) {
-        v += static_cast<V>(static_cast<int64_t>(src[j * m])) << (8 * j);
-      }
-      x[idx] = v;
-    }
-    __syncthreads();
-    // inverse transform (nussbaumer.inverse_raw): stage st pairs rows
-    // u = blk*2h + j and v = u + h; v is rotated by -root*j*2^st
-    for (int st = stages - 1; st >= 0; --st) {
-      const int half = two_l >> (st + 1);
-      const int log2h = stages - 1 - st;
-      V ra[kItems], rb[kItems];
+template <int W>
+__device__ __forceinline__ uint64_t shfl(uint64_t v, int src) {
+  return __shfl_sync(0xffffffffu, static_cast<unsigned long long>(v), src, W);
+}
+template <int W>
+__device__ __forceinline__ U96 shfl(U96 v, int src) {
+  return U96{shfl<W>(v.lo, src), __shfl_sync(0xffffffffu, v.hi, src, W)};
+}
+template <int W>
+__device__ __forceinline__ u128 shfl(u128 v, int src) {
+  const uint64_t lo = shfl<W>(static_cast<uint64_t>(v), src);
+  const uint64_t hi = shfl<W>(static_cast<uint64_t>(v >> 64), src);
+  return (static_cast<u128>(hi) << 64) | lo;
+}
+
+// Values in shared memory: a region of n values; U96 as a plane of n
+// 64-bit words and one of n 32-bit words (12 bytes a value).
+template <typename V>
+struct ValueBytes {
+  static constexpr int value = sizeof(V);
+};
+template <>
+struct ValueBytes<U96> {
+  static constexpr int value = 12;
+};
+// the bytes of a value in its first plane
+template <typename V>
+struct Plane0Bytes {
+  static constexpr int value = sizeof(V);
+};
+template <>
+struct Plane0Bytes<U96> {
+  static constexpr int value = 8;
+};
+__device__ __forceinline__ void put(char* r, int, int i, uint64_t v) {
+  reinterpret_cast<uint64_t*>(r)[i] = v;
+}
+__device__ __forceinline__ void put(char* r, int, int i, u128 v) {
+  reinterpret_cast<u128*>(r)[i] = v;
+}
+__device__ __forceinline__ void put(char* r, int n, int i, U96 v) {
+  reinterpret_cast<uint64_t*>(r)[i] = v.lo;
+  reinterpret_cast<uint32_t*>(r + 8 * static_cast<size_t>(n))[i] = v.hi;
+}
+__device__ __forceinline__ void get(const char* r, int, int i, uint64_t& v) {
+  v = reinterpret_cast<const uint64_t*>(r)[i];
+}
+__device__ __forceinline__ void get(const char* r, int, int i, u128& v) {
+  v = reinterpret_cast<const u128*>(r)[i];
+}
+__device__ __forceinline__ void get(const char* r, int n, int i, U96& v) {
+  v.lo = reinterpret_cast<const uint64_t*>(r)[i];
+  v.hi = reinterpret_cast<const uint32_t*>(r + 8 * static_cast<size_t>(n))[i];
+}
+
+// Stages half = H, 2H, ..., L/2 of the inverse transform
+// (nussbaumer.inverse_raw) on the L rows a lane holds: rows u = blk*2H + j
+// and v = u + H; v is rotated by -root*e, e = j*L/H < L, which takes
+// position k + e (negated past L): one __shfl_sync of width L. One flat
+// loop a stage, the stage a template argument, so every row index is a
+// constant and x stays in registers.
+template <typename V, int L, int H>
+__device__ __forceinline__ void inv_stages(V (&x)[L], int k) {
+  if constexpr (H < L) {
 #pragma unroll
-      for (int q = 0; q < kItems; ++q) {
-        const int it = threadIdx.x + q * blockDim.x;
-        if (it < items) {
-          const int p = it >> log2lg;
-          const int k = (it & (lg - 1)) >> log2g;
-          const int rl = it & (g - 1);
-          const int j = p & (half - 1);
-          const int row_u = ((p >> log2h) << (log2h + 1)) + j;
-          const int sk = (two_l - ((j << st) & (two_l - 1))) & (two_l - 1);
-          const int kk = (k - sk) & (two_l - 1);
-          V v = x[((row_u + half) * l + (kk & (l - 1))) * g + rl];
-          if (kk >= l) v = V(0) - v;
-          const V u = x[(row_u * l + k) * g + rl];
-          ra[q] = u + v;
-          rb[q] = u - v;
+    for (int t = 0; t < L / 2; ++t) {
+      const int j = t % H;
+      const int iu = (t / H) * 2 * H + j;
+      const int iv = iu + H;
+      const int e = j * (L / H);
+      V v = x[iv];
+      if (e != 0) {
+        v = shfl<L>(v, (k + e) & (L - 1));
+        if (k + e >= L) v = neg(v);
+      }
+      const V u = x[iu];
+      x[iu] = u + v;
+      x[iv] = u - v;
+    }
+    inv_stages<V, L, 2 * H>(x, k);
+  }
+}
+
+// K5 / K6's most threads a block (the launch bound): 2L lanes a class slot,
+// kRecThreads (K5) or kRecThreads64 (K6) at L = 32
+template <typename V, int L>
+struct RecMaxThreads {
+  static constexpr int value =
+      L >= 32 ? (sizeof(V) > 8 ? kRecThreads64 : kRecThreads) : (L == 16 ? 512 : 1024);
+};
+
+// K5 recombine_inv (V = uint64_t, Out = uint32_t, LU = 5 limbs). Replaces
+// concrete_tpu/core/bootstrap_nuss.py:_recombine_inv_pallas.
+// K6 recombine_inv64 (V = U96, Out = uint64_t, LU = 9). Replaces
+// concrete_tpu/core/bootstrap_nuss.py:_recombine_inv_pallas64.
+// s [2L, B, (k+1)*LU*M] i32 -> out [k+1, B, L, M] u32 / u64, chunk-major:
+//   v[z][c] = sum_j sext(s[z, b, (kj*LU + j)*M + c]) << 8j  (exact mod 2^w',
+//   w' = bits + shift), the inverse 2L-point transform over z (twiddles
+//   Z^(-root*j*2^st)), the fold out_t = c_t + Z*c_{t+L}, then the low word
+//   of v >> shift. The TPU kernels carry these values in u32 word pairs (K5)
+//   and 96-bit triples (K6); here a uint64_t and a 64 + 32-bit pair.
+// Bound on the card: HBM reads of s, 4*LU bytes a frequency value against 4
+// (K5) or 8 (K6) bytes written an output coefficient; the integer work
+// (~LU + 6*log2(2L) word operations a value) is below it.
+// Design.
+// - A block owns g classes of `polys` whole polynomials (g = root; several
+//   polynomials a block at small root: 4 on the TFHE_LIB ring, M = 32), or
+//   g = root / C classes of one polynomial, the C blocks of a thread block
+//   cluster sharing it: the first class of a block reads its neighbour's
+//   fold rows from the previous block's shared memory (DSMEM). No block
+//   loops over class groups and nothing is carried between them.
+// - Gather: the M words of one (row, limb) are contiguous and a block's
+//   classes are runs of g words of them. Every thread loads one position of
+//   every other row, coalesced, kRecBatch rows' limbs in flight at once,
+//   recombines them in registers and writes the value class-major into
+//   shared memory, X [2L][slot][stride] (8 / 12 bytes a value, not the 4*LU
+//   of the limbs). One barrier. The loads run under the transform of the
+//   other block of an SM (K5: two blocks an SM; K6 takes one of 512
+//   threads, which measured faster); tools/k56_sweep.py splits the time.
+// - Transform in registers: a class slot is 2L lanes; lane k of the low
+//   half takes position k of rows 0..L-1 from X, the high half rows
+//   L..2L-1 (L values a lane). Stages half = 1..L/2 never leave a half:
+//   shuffles only, no barrier.
+// - Last stage and fold in X: each half writes back what the other needs
+//   (over the words it alone read), does half of the last stage (t < L/2,
+//   t >= L/2), keeps c_t and writes c_{t+L} over what it alone read; after a
+//   (cluster) barrier the fold reads c_{t+L} of the neighbouring class.
+// - Stores: the folded words are staged class-major over the rows L..2L-1
+//   of X and leave in 16-byte stores of runs of out.
+template <typename V, typename Out, int L, int LU>
+__global__ void __launch_bounds__(RecMaxThreads<V, L>::value)
+    recombine_inv_kernel(const int32_t* __restrict__ s, Out* __restrict__ out,
+                         int batch, int ks1, int m, int g, int polys,
+                         int stride, int cluster, int shift) {
+  extern __shared__ uint4 smem[];
+  char* x_s = reinterpret_cast<char*>(smem);
+  constexpr int kLog2L = Log2<L>::value;
+  constexpr int kBatch = L < kRecBatch ? L : kRecBatch;
+  const int root = m >> kLog2L;
+  const int log2g = log2_dev(g);
+  const int gl = g << kLog2L;
+  const int slots = g * polys;
+  const int threads = 2 * L * slots;
+  const int n_polys = ks1 * batch;
+  const int q = blockIdx.x % cluster;  // rank in the cluster
+  const int r0 = q * g;
+  const int tid = threadIdx.x;
+  const int n_x = 2 * L * slots * stride;  // X's values
+  auto xi = [&](int z, int sl, int kk) { return (z * slots + sl) * stride + kk; };
+
+  namespace cg = cooperative_groups;
+  cg::cluster_group blocks = cg::this_cluster();
+  const int pg = blockIdx.x / cluster;
+  // gather: thread tid takes word qw of the runs of polynomial pw, rows
+  // hw, hw + 2, ... (threads = 2 * polys * g * L)
+  {
+    const int qw = tid & (gl - 1);
+    const int pw = (tid >> (kLog2L + log2g)) % polys;
+    const int hw = tid / (gl * polys);
+    const int pidx = pg * polys + pw;
+    const bool valid = pidx < n_polys;
+    const int kj = pidx / batch;
+    const size_t z_stride = static_cast<size_t>(batch) * ks1 * LU * m;
+    const int32_t* src =
+        s + hw * z_stride +
+        (static_cast<size_t>(pidx - kj * batch) * ks1 + kj) * LU * m +
+        (qw >> log2g) * root + r0 + (qw & (g - 1));
+    const int slot_w = pw * g + (qw & (g - 1));
+    const int k_w = qw >> log2g;
+    auto rows = [&](int i0) {  // kBatch rows: their limbs, then the values
+      int32_t w[kBatch][LU];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+#pragma unroll
+        for (int j = 0; j < LU; ++j) {
+          w[b][j] = valid ? __ldg(src + 2 * (i0 + b) * z_stride + j * m) : 0;
         }
       }
-      __syncthreads();
 #pragma unroll
-      for (int q = 0; q < kItems; ++q) {
-        const int it = threadIdx.x + q * blockDim.x;
-        if (it < items) {
-          const int p = it >> log2lg;
-          const int k = (it & (lg - 1)) >> log2g;
-          const int rl = it & (g - 1);
-          const int row_u = ((p >> log2h) << (log2h + 1)) + (p & (half - 1));
-          x[(row_u * l + k) * g + rl] = ra[q];
-          x[((row_u + half) * l + k) * g + rl] = rb[q];
-        }
+      for (int b = 0; b < kBatch; ++b) {
+        V v;
+        recombine<LU>(w[b], v);
+        put(x_s, n_x, xi(2 * (i0 + b) + hw, slot_w, k_w), v);
       }
-      __syncthreads();
+    };
+    // unrolled, the next rows' loads start before this batch's recombine:
+    // faster on K5, slower on K6 (more registers; tools/k56_sweep.py)
+    if constexpr (LU < 9) {
+#pragma unroll
+      for (int i0 = 0; i0 < L; i0 += kBatch) rows(i0);
+    } else {
+#pragma unroll 1
+      for (int i0 = 0; i0 < L; i0 += kBatch) rows(i0);
     }
-    // fold mod (Y^L - Z): out_t[c] = x_t[c] + x_{t+L}[c - 1], where
-    // position -1 is -x_{t+L}[M - 1]; /2L; store
-    for (int idx = threadIdx.x; idx < items; idx += blockDim.x) {
-      const int t = idx >> log2lg;
-      const int k = (idx & (lg - 1)) >> log2g;
-      const int rl = idx & (g - 1);
-      const V lo = x[(t * l + k) * g + rl];
-      const int c = k * root + r0 + rl;
-      if (r0 + rl > 0) {
-        const V hi = rl > 0 ? x[((t + l) * l + k) * g + rl - 1]
-                            : side_hi[t * l + k];
-        out_b[t * m + c] = shifted<Out>(lo + hi, shift);
-      } else if (n_grp == 1) {  // class 0; class root-1 is local g-1
-        const V hi = k > 0 ? x[((t + l) * l + k - 1) * g + g - 1]
-                           : V(0) - x[((t + l) * l + l - 1) * g + g - 1];
-        out_b[t * m + c] = shifted<Out>(lo + hi, shift);
-      } else {
-        side_lo0[t * l + k] = lo;
-      }
+  }
+  __syncthreads();
+
+  const int k = tid & (L - 1);
+  const int half = (tid >> kLog2L) & 1;
+  const int slot = tid >> (kLog2L + 1);
+  const int p = slot >> log2g;
+  const int rl = slot & (g - 1);
+  V x[L];
+#pragma unroll
+  for (int i = 0; i < L; ++i) get(x_s, n_x, xi(half * L + i, slot, k), x[i]);
+  inv_stages<V, L, 1>(x, k);
+
+  // last stage (half = L): c_t = a_t + b_t', c_{t+L} = a_t - b_t', b_t' =
+  // row L + t rotated by -root*t. A lane writes only words it alone read.
+  if (half == 0) {
+#pragma unroll
+    for (int t = L / 2; t < L; ++t) put(x_s, n_x, xi(t, slot, k), x[t]);
+  } else {
+#pragma unroll
+    for (int t = 0; t < L; ++t) put(x_s, n_x, xi(L + t, slot, k), x[t]);
+  }
+  __syncthreads();
+  if (half == 0) {
+#pragma unroll
+    for (int t = 0; t < L / 2; ++t) {
+      V b;
+      get(x_s, n_x, xi(L + t, slot, (k + t) & (L - 1)), b);
+      if (k + t >= L) b = neg(b);
+      const V a = x[t];
+      x[t] = a + b;
+      put(x_s, n_x, xi(t, slot, k), a - b);
     }
+  } else {
+#pragma unroll
+    for (int t = L / 2; t < L; ++t) {
+      V a, b;
+      get(x_s, n_x, xi(t, slot, k), a);
+      get(x_s, n_x, xi(L + t, slot, (k + t) & (L - 1)), b);
+      if (k + t >= L) b = neg(b);
+      x[t] = a + b;
+      put(x_s, n_x, xi(t, slot, k), a - b);
+    }
+  }
+  if (cluster > 1) {
+    blocks.sync();
+  } else {
     __syncthreads();
-    if (n_grp > 1) {  // the last class's high rows, for the next group
-      for (int idx = threadIdx.x; idx < l * l; idx += blockDim.x) {
-        const int t = idx >> log2l;
-        const int k = idx & (l - 1);
-        side_hi[idx] = x[((t + l) * l + k) * g + g - 1];
+  }
+
+  // fold: out_t = c_t + Z * c_{t+L}: the previous class (slot rl - 1, or
+  // the previous block's last slot), class 0 from class root - 1 one
+  // position down, negated where it wraps
+  const char* nb = x_s;
+  int nb_slot = slot - 1;
+  bool wrap = false;
+  if (rl == 0) {
+    nb_slot = p * g + g - 1;
+    wrap = q == 0;
+    if (cluster > 1) {
+      nb = blocks.map_shared_rank(x_s, (q + cluster - 1) % cluster);
+    }
+  }
+  const int kk = wrap ? ((k - 1) & (L - 1)) : k;
+  const bool negate = wrap && k == 0;
+  // [polys][L][g][stride] Out words over the first plane of rows L..2L-1
+  Out* o = reinterpret_cast<Out*>(x_s + static_cast<size_t>(n_x / 2) *
+                                            Plane0Bytes<V>::value);
+  const int o_row = (p * L * g + rl) * stride + k;
+#pragma unroll
+  for (int i = 0; i < L / 2; ++i) {
+    const int t = i + (half ? L / 2 : 0);
+    V h;
+    get(nb, n_x, xi(t, nb_slot, kk), h);
+    if (negate) h = neg(h);
+    const V c = half ? x[i + L / 2] : x[i];
+    o[o_row + t * g * stride] = static_cast<Out>(shifted(c + h, shift));
+  }
+  __syncthreads();
+
+  // stores: runs of g words of out (all M when the block owns its
+  // polynomials whole), 16 bytes a store where a run holds them
+  constexpr int kVec = 16 / sizeof(Out);
+  const int words = polys * L * gl;
+  const bool vec = (cluster == 1 || (g % kVec) == 0) && (m % kVec) == 0;
+  const int step = vec ? kVec : 1;
+  for (int w = tid * step; w < words; w += threads * step) {
+    const int qq = w & (gl - 1);
+    const int pt = w >> (kLog2L + log2g);  // p * L + t
+    const int pidx = pg * polys + (pt >> kLog2L);
+    if (pidx >= n_polys) continue;
+    Out* dst = out + (static_cast<size_t>(pidx) * L + (pt & (L - 1))) * m +
+               (qq >> log2g) * root + r0 + (qq & (g - 1));
+    const Out* row = o + static_cast<size_t>(pt) * g * stride;
+    if (vec) {
+      union {
+        Out w[kVec];
+        uint4 v;
+      } pack;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const int qe = qq + e;
+        pack.w[e] = row[(qe & (g - 1)) * stride + (qe >> log2g)];
       }
-      __syncthreads();
+      *reinterpret_cast<uint4*>(dst) = pack.v;
+    } else {
+      *dst = row[(qq & (g - 1)) * stride + (qq >> log2g)];
     }
   }
-  if (n_grp > 1) {  // class 0 against class root-1
-    for (int idx = threadIdx.x; idx < l * l; idx += blockDim.x) {
-      const int t = idx >> log2l;
-      const int k = idx & (l - 1);
-      const V hi = k > 0 ? side_hi[t * l + k - 1] : V(0) - side_hi[t * l + l - 1];
-      out_b[t * m + k * root] = shifted<Out>(side_lo0[idx] + hi, shift);
-    }
-  }
+  if (cluster > 1) blocks.sync();  // the next block has read our c_{t+L}
 }
 
 // K7 rotdig_fwd_nuss (T = uint32_t; T = uint64_t for the u64 torus, which
@@ -227,15 +470,6 @@ __global__ void __launch_bounds__(kThreads) recombine_inv_kernel(
 // block takes max(1, 256/M) polynomials (the TFHE_LIB ring, M = 32: 8 a
 // block), so the small rings fill the card too; 2 barriers a level and
 // sub-digit pass.
-template <int L>
-struct Log2 {
-  static constexpr int value = L <= 1 ? 0 : 1 + Log2<L / 2>::value;
-};
-template <>
-struct Log2<1> {
-  static constexpr int value = 0;
-};
-
 // Byte transpose of a 4 x 4 block: out[j] holds byte j of a, b, c, d.
 __device__ __forceinline__ void transpose4x4(uint32_t a, uint32_t b,
                                              uint32_t c, uint32_t d,
@@ -475,42 +709,92 @@ __global__ void __launch_bounds__(kK7Threads) rotdig_fwd_nuss_kernel(
   }
 }
 
-int block_threads(int items) {
-  return items < kThreads ? (items + 31) / 32 * 32 : kThreads;
-}
-
-template <typename V, typename Out, int kItems>
-int launch_recombine_inv(const void* s, void* out, int batch, int ks1, int lu,
-                         int l, int m, int shift, void* stream) {
-  const int root = m / l;
-  int g = root;
-  while (g > 1 && static_cast<size_t>(2) * l * l * g * sizeof(V) > kRecombineSmem) {
-    g >>= 1;
-  }
-  const int n_grp = root / g;
-  const size_t smem = (static_cast<size_t>(2) * l * l * g +
-                       (n_grp > 1 ? static_cast<size_t>(2) * l * l : 0)) *
-                      sizeof(V);
-  const int items = l * l * g;
-  const int threads = block_threads(items);
-  if (items > kItems * threads || smem > kSmemMax) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  auto kern = recombine_inv_kernel<V, Out, kItems>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kern<<<dim3(batch, ks1), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(s), static_cast<Out*>(out), batch, ks1, lu,
-      l, m, g, shift);
-  return static_cast<int>(cudaGetLastError());
-}
-
 int log2_int(int v) {
   int l = 0;
   while ((1 << l) < v) ++l;
   return l;
 }
+
+// K5 / K6 geometry: g classes a block, `polys` polynomials a block (when
+// the block owns them whole), `cluster` blocks a polynomial otherwise.
+template <typename V, typename Out, int L, int LU>
+int launch_recombine_l(const void* s, void* out, int batch, int ks1, int m,
+                       int shift, void* stream) {
+  constexpr int kMaxThreads = RecMaxThreads<V, L>::value;
+  const int root = m / L;
+  const int slots = std::max(1, (sizeof(V) > 8 ? kRecThreads64 : kRecThreads) / (2 * L));
+  int g = std::min(root, slots);
+  int cluster = root / g;
+  if (cluster > kClusterMax) {
+    cluster = kClusterMax;
+    g = root / kClusterMax;
+  }
+  const int polys = cluster == 1 ? slots / g : 1;
+  const int threads = 2 * L * g * polys;
+  if (threads > kMaxThreads) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  // X: 2L rows of `slots` classes, L + 1 words a class (odd: the lanes of
+  // a warp read one class, consecutive words)
+  const int stride = L + 1;
+  const size_t smem = static_cast<size_t>(2) * L * g * polys * stride *
+                      ValueBytes<V>::value;
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidConfiguration);
+  static bool raised = false;  // per instantiation, once
+  auto kern = recombine_inv_kernel<V, Out, L, LU>;
+  if (!raised) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemMax));
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised = true;
+  }
+  const int groups = (ks1 * batch + polys - 1) / polys;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const int32_t*>(s), static_cast<Out*>(out),
+      batch, ks1, m, g, polys, stride, cluster, shift);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename V, typename Out, int LU>
+int launch_recombine_inv(const void* s, void* out, int batch, int ks1, int lu,
+                         int l, int m, int shift, void* stream) {
+  if (lu != LU || m < l || (m & (m - 1)) || m % l || shift < 1 || shift > 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (l) {
+    case 2:
+      return launch_recombine_l<V, Out, 2, LU>(s, out, batch, ks1, m, shift, stream);
+    case 4:
+      return launch_recombine_l<V, Out, 4, LU>(s, out, batch, ks1, m, shift, stream);
+    case 8:
+      return launch_recombine_l<V, Out, 8, LU>(s, out, batch, ks1, m, shift, stream);
+    case 16:
+      return launch_recombine_l<V, Out, 16, LU>(s, out, batch, ks1, m, shift, stream);
+    case 32:
+      return launch_recombine_l<V, Out, 32, LU>(s, out, batch, ks1, m, shift, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 
 // Words a class of the K7 state takes (>= L): the stride that keeps two
 // access patterns of a warp on the fewest shared banks: the coalesced
@@ -628,14 +912,14 @@ const char* ctt_error_string(int err) {
 
 int ctt_recombine_inv(const void* s, void* out, int batch, int ks1, int lu,
                       int l, int m, int shift, void* stream) {
-  return launch_recombine_inv<uint64_t, uint32_t, kMaxItems>(s, out, batch, ks1, lu, l, m,
-                                                  shift, stream);
+  return launch_recombine_inv<uint64_t, uint32_t, 5>(s, out, batch, ks1, lu,
+                                                     l, m, shift, stream);
 }
 
 int ctt_recombine_inv64(const void* s, void* out, int batch, int ks1, int lu,
                         int l, int m, int shift, void* stream) {
-  return launch_recombine_inv<u128, uint64_t, kMaxItems / 2>(s, out, batch, ks1, lu, l, m,
-                                              shift, stream);
+  return launch_recombine_inv<K6Value, uint64_t, 9>(s, out, batch, ks1, lu,
+                                                    l, m, shift, stream);
 }
 
 int ctt_rotdig_fwd_nuss(const void* acc, const void* a_hat, void* d8,

@@ -241,10 +241,17 @@ def _dot_output(rng, plan, b, dev):
     return torch.from_numpy(s.astype(np.int32)).to(dev)
 
 
-# (k+1, N, L, B): 2L = 4 and 64, M = 32 and 512, the N = 8192 / 16384
-# engine chunkings, and more than one class group in shared memory
-NUSS_SHAPES = [(2, 64, 2, 5), (3, 256, 4, 3), (2, 1024, 32, 4),
-               (2, 8192, 32, 3), (2, 16384, 32, 2), (1, 4096, 32, 3)]
+# (k+1, N, L, B): every L of the envelope (2..32) and K5 / K6's block
+# geometries: several polynomials a block (root 1: the TFHE_LIB ring at
+# B = 2048 and 2047, a partial last block; L = 2, 4 at small M), one whole
+# polynomial a block (root 4, 8, 16), and a polynomial over a cluster of 2,
+# 4, 8 and 16 blocks (the N = 8192 / 16384 engine chunkings at L = 32, root
+# 8 and 16; L = 16 at N = 16384; L = 2 at N = 8192 and 16384, 1024 threads)
+NUSS_SHAPES = [(2, 64, 2, 5), (1, 512, 2, 3), (1, 8192, 2, 2), (1, 16384, 2, 1),
+               (3, 256, 4, 3), (2, 128, 4, 7), (2, 1024, 8, 3), (2, 2048, 16, 2),
+               (1, 16384, 16, 2), (2, 1024, 32, 4), (2, 1024, 32, 2048),
+               (2, 1024, 32, 2047), (2, 8192, 32, 3), (2, 16384, 32, 2),
+               (1, 4096, 32, 3)]
 
 
 @pytest.mark.parametrize("ks1,n,l,b", NUSS_SHAPES)

@@ -1,5 +1,6 @@
 """The port must run where JAX is absent: importing every module of
-concrete_tpu_torch, and chip_smoke.py, loads neither jax nor concrete_tpu."""
+concrete_tpu_torch, chip_smoke.py and the kernel sweeps (tools/k*_sweep.py)
+loads neither jax nor concrete_tpu."""
 
 import subprocess
 import sys
@@ -15,6 +16,10 @@ names = [m.name for m in pkgutil.walk_packages(concrete_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import importlib.util, pathlib
+for path in sorted(pathlib.Path("tools").glob("k*_sweep.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "concrete_tpu" or m.startswith("concrete_tpu."))

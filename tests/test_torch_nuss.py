@@ -198,11 +198,18 @@ def _dot_output(rng, plan, b):
     return s.astype(np.int32)
 
 
-@pytest.mark.parametrize("ks1,N,L", [(3, 128, 4), (2, 512, 8)])
+# (k+1, N, L): tests/test_nussbaumer.py's shapes, L = 2 and 16, and the
+# TFHE_LIB ring's chunking (N=1024, L=32, M=32: root 1, the fold's
+# neighbour is the class itself)
+RECOMBINE_SHAPES = [(3, 128, 4), (2, 512, 8), (2, 64, 2), (2, 512, 16),
+                    (2, 1024, 32)]
+
+
+@pytest.mark.parametrize("ks1,N,L", RECOMBINE_SHAPES)
 def test_recombine_inv_plain_matches_pallas_and_xla(ks1, N, L):
     """K5's plain version against the JAX XLA form and the Pallas kernel in
-    interpret mode (tests/test_nussbaumer.py's shapes), and the wrapper on
-    CPU tensors, which takes the plain version."""
+    interpret mode, and the wrapper on CPU tensors, which takes the plain
+    version."""
     cj, ct = _cfgs(4, ks1 - 1, N, 7, 2)
     plan_j, plan = bsn_jax.NussPlan.from_config(cj, L), bsn_t.NussPlan.from_config(ct, L)
     s = _dot_output(np.random.default_rng(19 + N), plan, 16)
@@ -219,7 +226,7 @@ def test_recombine_inv_plain_matches_pallas_and_xla(ks1, N, L):
     assert bsn_t.launch_counts()["recombine_inv"] == 0
 
 
-@pytest.mark.parametrize("ks1,N,L", [(3, 128, 4), (2, 512, 8)])
+@pytest.mark.parametrize("ks1,N,L", RECOMBINE_SHAPES)
 def test_recombine_inv64_plain_matches_pallas_and_xla(ks1, N, L):
     """K6's plain version on the u64 torus (128-bit pairs on int64)."""
     cj, ct = _cfgs(4, ks1 - 1, N, 7, 2, 64)
