@@ -65,7 +65,7 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           AND and the fused AND. K8 and K9 must launch.
 
 Every phase logs its kernels' launches per shape key (launches_by_shape);
-after the phases, each phase-A row of K5-K7 is logged beside the
+after the phases, each phase-A row of K4-K7 is logged beside the
 launches of its shape key on the main paths (A_launches).
 The last lines are the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line and {"ok": true, "device": {...}}. Any failure
@@ -160,6 +160,20 @@ PIPE_LANES, ISSUE_LANES = 64, 128
 # product, x1 + p0*x2 (one IMAD), the compare with ceil(M/2) (two), its
 # conditional subtract and the add into acc
 MONT, MODADD, MAC_PAIR, GARNER = (3, 1, 1), (0, 2, 1), (4, 2, 0), (4, 6, 5)
+# K4's fewest instructions a coefficient, as (multiplies, adds, ALU-only):
+# the gather (c - a and the shared address: two adds; the index mask, the
+# wrap bit and the negate's xor of both words: four ALU) and the rounded
+# difference (v ^ m) - m - x + half (four adds with carries); the prefix's
+# shift (one ALU, two when it is wider than 32 bits); a level on the 32-bit
+# state: res, st, the carry's bits and their shift (four ALU), res - 1 and
+# st + carry (two adds), the digit res - carry * 2^base_log (a multiply);
+# the last level needs no st (three ALU, an add, a multiply); a level on
+# the 64-bit state: st and st + carry on two words (five ALU, three adds, a
+# multiply); a balanced 7-bit sub-digit: (d + 64) >> 7 and d - 128 * that
+# (an add, a shift, a multiply); three byte permutes pack four digits
+# (0.75 ALU a coefficient, a level and sub-digit)
+GATHER64, LEVEL32, LAST32, LEVEL64 = (0, 6, 4), (1, 2, 4), (1, 1, 3), (1, 3, 5)
+SUBDIGIT, PACK = (1, 1, 1), (0, 0, 0.75)
 # phase C: examples/int4_lut.py at the JAX suite's batch
 INT4 = {"lwe": hl.LWE128_630, "rlwe": hl.RLWE128_1024_1, "pbs": (7, 3),
         "ks": (2, 8), "batch": 2048}
@@ -303,13 +317,19 @@ def kernel_cases(dev):
     n, b = INT4["rlwe"].polynomial_size, INT4["batch"]
     for bl, lv in [INT4["pbs"], (10, 3), (16, 2), (16, 3)]:
         plan = bsx.MxuPlan.from_config(_int4_config(bl, lv))
-        acc, a_hat = u64((plan.glwe_size, b, n)), degrees(n, b)
+        ks1 = plan.glwe_size
+        acc, a_hat = u64((ks1, b, n)), degrees(n, b)
         d8 = torch.empty((b, plan.row_blocks * n), dtype=torch.int8, device=dev)
+        per_coef = rotdig64_work(plan)
+        coefs = b * ks1 * n
         cases.append((
             "rotdig64", f"int4 B={b} bl={bl} l={lv} n_sub={plan.n_sub}",
             lambda p=plan, acc=acc, a=a_hat, d8=d8: bsx.rotdig64(p, acc, a, out=d8),
             lambda p=plan, acc=acc, a=a_hat: bsx.rotdig64_plain(p, acc, a),
-            (acc, a_hat)))
+            (acc, a_hat),
+            {"op_s": int_ops_s(*(coefs * w for w in per_coef)),
+             "instr_per_coef": per_coef,
+             "key": f"B={b} ks1={ks1} N={n} bl={bl} l={lv} n_sub={plan.n_sub}"}))
     for drop in (0, 2):
         plan = bsx.MxuPlan.from_config(_int4_config(*INT4["pbs"], drop))
         rings = u32((plan.row_blocks, plan.glwe_size * 2, 2 * n))
@@ -345,6 +365,20 @@ def ntt_cmux_work(cfg, b: int) -> tuple[int, tuple[int, int, int]]:
              MAC_PAIR: macs // 2, GARNER: garner}
     return products, tuple(sum(c * op[i] for op, c in count.items())
                            for i in range(3))
+
+
+def rotdig64_work(plan) -> tuple[float, float, float]:
+    """K4's fewest 32-bit instructions a coefficient, as (multiplies, adds,
+    ALU-only), at the plan's gadget: the levels that run on the 64-bit
+    state until the bits left fit 32, then on the 32-bit state (the
+    costs above). Times b * (k+1) * N coefficients for a launch."""
+    bl, lv, ns = plan.base_log, plan.level, plan.n_sub
+    prefix = bl * lv
+    wide = max(0, -(-(prefix - 32) // bl))
+    count = {GATHER64: 1, (0, 0, 2 if prefix > 32 else 1): 1,
+             LEVEL64: wide, LEVEL32: lv - 1 - wide, LAST32: 1,
+             SUBDIGIT: lv * (ns - 1), PACK: lv * ns}
+    return tuple(sum(c * op[i] for op, c in count.items()) for i in range(3))
 
 
 def int_ops_s(mul: int, add: int, alu: int) -> float:
@@ -518,8 +552,9 @@ def bound_ms(inputs, outputs, op_s=None) -> tuple[float, str]:
     """The least time the card could take: each input read once and each
     output written once at the HBM rate, against the kernel's operations
     at their peak rate (`op_s` seconds: K8's int8 MACs at the tensor rate,
-    K9's integer instructions at the integer pipes' rates), else one ALU operation
-    per output element (a lower bound on the work) at the float32 rate."""
+    K4's and K9's integer instructions at the integer pipes' rates), else
+    one ALU operation per output element (a lower bound on the work) at the
+    float32 rate."""
     moved = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
     by_bytes = moved / HBM_BYTES_PER_S
     by_ops = (sum(t.numel() for t in outputs) / ALU_OPS_PER_S if op_s is None
@@ -557,6 +592,8 @@ def phase_a(dev, card):
             more["unfused_step_ms"] = time_ms(extra["unfused"])
         if "mont_products" in extra:
             more["mont_products"] = extra["mont_products"]
+        if "instr_per_coef" in extra:  # (multiplies, adds, ALU-only)
+            more["fewest_instr_per_coef"] = extra["instr_per_coef"]
         log(phase="A", kernel=kernel, shape=label, equal=True, max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
             **more, card=card)
@@ -654,8 +691,8 @@ _KERNEL_KINDS = (("ntt_cmux_kernel", "K9 ntt_cmux"),
                  ("fused_cmux_kernel", "K8 fused_cmux"),
                  ("build_tables", "K1 build_tables"),
                  ("rotdig_recombine", "K3 rotdig_recombine"),
-                 ("rotdig_kernel<unsigned long", "K4 rotdig64"),
-                 ("rotdig_kernel<unsigned int", "K2 rotdig"),
+                 ("rotdig64_kernel", "K4 rotdig64"),
+                 ("rotdig_kernel", "K2 rotdig"),
                  ("recombine_inv_kernel<unsigned long, unsigned int",
                   "K5 recombine_inv"),
                  ("recombine_inv_kernel", "K6 recombine_inv64"),

@@ -27,13 +27,12 @@ constexpr int kSubChunkBits = 7;  // MxuPlan.SUB_CHUNK_BITS
 
 // Coefficient c of X^a * row mod (X^N + 1), N = n a power of two: a signed
 // gather. t = (c - a) mod 2N; t >= N is the wrapped half (X^N == -1).
-// T is the torus word: uint32_t (u32 torus) or uint64_t (u64 torus).
-template <typename T>
-__device__ __forceinline__ T rotated(const T* row, int c, int32_t a, int n) {
+__device__ __forceinline__ uint32_t rotated(const uint32_t* row, int c,
+                                            int32_t a, int n) {
   const uint32_t t = (static_cast<uint32_t>(c) - static_cast<uint32_t>(a)) &
                      static_cast<uint32_t>(2 * n - 1);
-  const T v = row[t & static_cast<uint32_t>(n - 1)];
-  return t >= static_cast<uint32_t>(n) ? T(0) - v : v;
+  const uint32_t v = row[t & static_cast<uint32_t>(n - 1)];
+  return t >= static_cast<uint32_t>(n) ? 0u - v : v;
 }
 
 // Signed gadget digits of four consecutive coefficients c0..c0+3 of one
@@ -42,39 +41,37 @@ __device__ __forceinline__ T rotated(const T* row, int c, int32_t a, int n) {
 // (concrete_tpu/math/decomposition.py), level l first; each digit is split
 // into n_sub balanced 7-bit chunks (_split_subdigits, MSB chunk = sub 0) at
 // column block ((lev * n_sub + sub) * ks1 + ki) * N.
-// non_rep = bits - base_log*level lies in [0, bits - 1]: no shift reaches
-// the word width (at non_rep = 0 nothing is rounded and the shift is 0),
-// and at non_rep = 32 on u64 the rounding bit is bit 31, as in the JAX
-// kernel's low-word edge. |digit| <= 2^(base_log-1) <= 2^30 fits int32.
-template <typename T>
-__device__ __forceinline__ void emit_digits(int8_t* d8_row, const T diff[4],
-                                            int ki, int ks1, int n, int c0,
+// non_rep = 32 - base_log*level lies in [0, 31]: no shift reaches the word
+// width (at non_rep = 0 nothing is rounded and the shift is 0).
+// |digit| <= 2^(base_log-1) <= 2^30 fits int32.
+__device__ __forceinline__ void emit_digits(int8_t* d8_row,
+                                            const uint32_t diff[4], int ki,
+                                            int ks1, int n, int c0,
                                             int base_log, int level,
                                             int n_sub) {
-  const int non_rep = static_cast<int>(8 * sizeof(T)) - base_log * level;
-  T state[4];
+  const int non_rep = 32 - base_log * level;
+  uint32_t state[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    T d = diff[q];
+    uint32_t d = diff[q];
     if (non_rep > 0) {
-      const T msb = (d >> (non_rep - 1)) & T(1);
+      const uint32_t msb = (d >> (non_rep - 1)) & 1u;
       d = ((d >> non_rep) + msb) << non_rep;
     }
     state[q] = d >> non_rep;
   }
-  const T mask = (T(1) << base_log) - T(1);
+  const uint32_t mask = (1u << base_log) - 1u;
   for (int step = 0; step < level; ++step) {
     const int lev = level - 1 - step;
     int32_t digit[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const T res = state[q] & mask;
-      const T st = state[q] >> base_log;
-      T carry = ((res - T(1)) | st) & res;
+      const uint32_t res = state[q] & mask;
+      const uint32_t st = state[q] >> base_log;
+      uint32_t carry = ((res - 1u) | st) & res;
       carry >>= base_log - 1;
       state[q] = st + carry;
-      digit[q] = static_cast<int32_t>(
-          static_cast<uint32_t>(res - (carry << base_log)));
+      digit[q] = static_cast<int32_t>(res - (carry << base_log));
     }
     for (int j = 0; j < n_sub; ++j) {  // j = 0: least significant chunk
       uint32_t packed = 0;
@@ -98,13 +95,12 @@ __device__ __forceinline__ void emit_digits(int8_t* d8_row, const T diff[4],
 }
 
 // The rotdig body on one polynomial already in shared memory.
-template <typename T>
-__device__ __forceinline__ void rotdig_row(const T* row, int32_t a,
+__device__ __forceinline__ void rotdig_row(const uint32_t* row, int32_t a,
                                            int8_t* d8_row, int ki, int ks1,
                                            int n, int base_log, int level,
                                            int n_sub) {
   for (int c0 = threadIdx.x * 4; c0 < n; c0 += blockDim.x * 4) {
-    T diff[4];
+    uint32_t diff[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       diff[q] = rotated(row, c0 + q, a, n) - row[c0 + q];
@@ -113,35 +109,28 @@ __device__ __forceinline__ void rotdig_row(const T* row, int32_t a,
   }
 }
 
-// K2 rotdig (T = uint32_t). Replaces
-// concrete_tpu/core/bootstrap_mxu.py:_rotdig_pallas.
-// K4 rotdig64 (T = uint64_t). Replaces
-// concrete_tpu/core/bootstrap_mxu.py:_rotdig_pallas64.
-// acc [k+1, B, N] u32 / u64, a_hat [B] i32 -> d8 [B, R*N] i8,
+// K2 rotdig. Replaces concrete_tpu/core/bootstrap_mxu.py:_rotdig_pallas.
+// acc [k+1, B, N] u32, a_hat [B] i32 -> d8 [B, R*N] i8,
 // R = level*n_sub*(k+1).
 // One block per (lane b, polynomial ki); the polynomial sits in shared
-// memory (N <= 4096 words: 16 KB u32, 32 KB u64) and each thread gathers
-// its rotated coefficients from it, in place of the TPU kernels' barrel of
-// static rolls (which existed only because their compiler hung on dynamic
-// rolls). K4 works on native uint64_t: the TPU kernel's (lo, hi) u32 word
-// planes and its base_log*level <= 32 limit existed only because the TPU
-// has no 64-bit lanes, so K4 takes every prefix up to 64 bits.
-// Bound on the card: HBM traffic, sizeof(T) bytes read and R/(k+1) bytes
-// written per coefficient; the digit loop is a few dozen integer ops.
+// memory (N <= 4096 words: 16 KB) and each thread gathers its rotated
+// coefficients from it, in place of the TPU kernel's barrel of static rolls
+// (which existed only because its compiler hung on dynamic rolls).
+// Bound on the card: HBM traffic, 4 bytes read and R/(k+1) bytes written
+// per coefficient.
 // Design: the acc row is read once, 16 bytes a thread, and the digits leave
 // as packed 4-byte stores, so a warp writes 128 contiguous bytes.
-template <typename T>
-__global__ void rotdig_kernel(const T* __restrict__ acc,
+__global__ void rotdig_kernel(const uint32_t* __restrict__ acc,
                               const int32_t* __restrict__ a_hat,
                               int8_t* __restrict__ d8, int batch, int ks1,
                               int n, int base_log, int level, int n_sub) {
   extern __shared__ uint4 row_words[];
-  T* row = reinterpret_cast<T*>(row_words);
+  uint32_t* row = reinterpret_cast<uint32_t*>(row_words);
   const int b = blockIdx.x;
   const int ki = blockIdx.y;
   const uint4* src = reinterpret_cast<const uint4*>(
       acc + (static_cast<size_t>(ki) * batch + b) * n);
-  const int n16 = n * static_cast<int>(sizeof(T)) / 16;
+  const int n16 = n / 4;
   for (int i = threadIdx.x; i < n16; i += blockDim.x) {
     row_words[i] = src[i];
   }
@@ -149,6 +138,178 @@ __global__ void rotdig_kernel(const T* __restrict__ acc,
   const size_t d8_cols = static_cast<size_t>(level) * n_sub * ks1 * n;
   rotdig_row(row, a_hat[b], d8 + b * d8_cols, ki, ks1, n, base_log, level,
              n_sub);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>  // wait until at most N committed groups are in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One level of decompose_levels on the state s (uint32_t or uint64_t):
+// returns the signed digit and leaves the state shifted by base_log, plus
+// the carry. The state is kept mod 2^(bits left): the carry out of the
+// top is dropped, and a state that overflows to 2^bits has zero bits
+// below, so every later res, carry and digit is 0 either way. At the last
+// level the state is at most 2^base_log, so st is 0 or (with res = 0) 1
+// and the carry needs no st.
+template <typename T>
+__device__ __forceinline__ int32_t gadget_digit(T& s, int bl, bool last) {
+  const T res = s & ((T(1) << bl) - T(1));
+  const T st = last ? T(0) : s >> bl;
+  const T carry = (((res - T(1)) | st) & res) >> (bl - 1);
+  s = st + carry;
+  return static_cast<int32_t>(static_cast<uint32_t>(res) -
+                              (static_cast<uint32_t>(carry) << bl));
+}
+
+// K4 rotdig64. Replaces concrete_tpu/core/bootstrap_mxu.py:_rotdig_pallas64.
+// acc [k+1, B, N] u64, a_hat [B] i32 -> d8 [B, R*N] i8,
+// R = level*n_sub*(k+1), for every base_log*level <= 64 (the TPU kernel
+// stopped at 32 bits, where its u32 word planes ran out).
+// Bound on the card: HBM traffic, 8 bytes read and R/(k+1) bytes written a
+// coefficient (13.8 us at the int4 shape, B=2048). The fewest 32-bit
+// instructions the digit work needs (chip_smoke.rotdig64_work: 32-58 a
+// coefficient at the main paths' gadgets) take a third of that at the
+// integer pipes' rates; but the earlier kernel, on native uint64_t with
+// the level and sub-digit loops at run time, issued 134-199 (its SASS,
+// tools/k4_sweep.py) and 4-way conflicted shared loads, and ran at 44-51%
+// of the bytes bound: instruction issue, not HBM, held it. This one issues
+// 61-91 and runs at 75-82%; what is left is that a row's load and its
+// digit work and stores overlap only in part (PERF.md, section 6).
+// Design:
+// - The digit state is 32 bits wide as soon as it fits, as in the TPU
+//   kernel: the rounded prefix (diff + 2^(non_rep-1)) >> non_rep comes
+//   from the 64-bit difference, and where base_log*level <= 32 every level
+//   runs on uint32_t. Wider prefixes run their lowest levels on uint64_t
+//   until the bits left fit 32 (gadget_digit keeps them mod 2^bits left).
+//   The loop is unrolled for the main paths' (base_log, level, n_sub),
+//   which carries the gain: the generic instance (all 0), which takes the
+//   rest of the envelope, runs at about the earlier kernel's time.
+// - A conflict-free gather: thread g owns coefficients 4g..4g+3 (one
+//   packed 4-byte store a level and sub-digit), and loads its four words
+//   in the order rotated by (g >> 2) & 3, so the 16 lanes of a half warp
+//   read 16 different 8-byte bank pairs; the last __byte_perm of the
+//   packing undoes the rotation.
+// - A block owns kRd64Rows consecutive (ki, b) rows in a double buffer:
+//   the next row's cp.async is in flight while this row's digits are
+//   computed and stored.
+constexpr int kRd64Threads = 128;  // threads a block (N/4 below N = 512)
+constexpr int kRd64Rows = 4;       // (ki, b) rows a block
+
+template <int BL, int L, int NSUB>
+__global__ void __launch_bounds__(kRd64Threads)
+    rotdig64_kernel(const uint64_t* __restrict__ acc,
+                    const int32_t* __restrict__ a_hat,
+                    int8_t* __restrict__ d8, int batch, int ks1, int n,
+                    int base_log, int level_rt, int n_sub_rt) {
+  extern __shared__ uint4 rows_words[];  // two row buffers
+  const int bl = BL ? BL : base_log;
+  const int level = L ? L : level_rt;
+  const int n_sub = NSUB ? NSUB : n_sub_rt;
+  const int prefix = bl * level;
+  const int non_rep = 64 - prefix;
+  const uint64_t half = non_rep ? uint64_t(1) << (non_rep - 1) : 0;
+  // levels run on the 64-bit state before the bits left fit 32
+  const int wide = prefix > 32 ? (prefix - 32 + bl - 1) / bl : 0;
+  const int n16 = n / 2;
+  const int g0 = blockIdx.x * kRd64Rows;
+  const int g1 = min(g0 + kRd64Rows, batch * ks1);
+  const size_t d8_cols = static_cast<size_t>(level) * n_sub * ks1 * n;
+  const size_t blk_stride = static_cast<size_t>(ks1) * n;  // a column block
+  // word q of a thread's window is coefficient c0 + ((q + rot) & 3); the
+  // packing's last selector puts the bytes back in coefficient order
+  const int rot = (threadIdx.x >> 2) & 3;
+  const uint32_t order = (0x54105410u >> (16 - 4 * rot)) & 0xFFFFu;
+
+  auto load = [&](int g) {  // row g = ki * batch + b of acc, async
+    const uint4* src = reinterpret_cast<const uint4*>(acc + size_t(g) * n);
+    uint4* dst = rows_words + ((g - g0) & 1) * n16;
+    for (int i = threadIdx.x; i < n16; i += blockDim.x) {
+      cp_async16(dst + i, src + i);
+    }
+    cp_async_commit();
+  };
+  load(g0);
+  int ki = g0 / batch;  // row g0 = ki * batch + b, then b steps through
+  int b = g0 - ki * batch;
+  for (int g = g0; g < g1; ++g) {
+    if (g + 1 < g1) {
+      load(g + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint64_t* row =
+        reinterpret_cast<const uint64_t*>(rows_words + ((g - g0) & 1) * n16);
+    const uint32_t a = static_cast<uint32_t>(a_hat[b]);
+    int8_t* out = d8 + b * d8_cols + static_cast<size_t>(ki) * n;
+    for (int c0 = 4 * threadIdx.x; c0 < n; c0 += 4 * blockDim.x) {
+      uint64_t s64[4];
+      uint32_t s32[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t c = c0 + ((q + rot) & 3);
+        const uint32_t t = (c - a) & static_cast<uint32_t>(2 * n - 1);
+        const uint64_t v = row[t & static_cast<uint32_t>(n - 1)];
+        // X^a * acc - acc at c, plus the rounding half; the wrapped half
+        // (t >= N) negates v, branch-free
+        const uint64_t m = uint64_t(0) - uint64_t((t & n) != 0);
+        const uint64_t d = (v ^ m) - m - row[c] + half;
+        s64[q] = d >> non_rep;
+      }
+#pragma unroll
+      for (int step = 0; step < level; ++step) {
+        const int lev = level - 1 - step;
+        int32_t digit[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (step < wide) {
+            digit[q] = gadget_digit(s64[q], bl, false);
+          } else {
+            if (step == wide) s32[q] = static_cast<uint32_t>(s64[q]);
+            digit[q] = gadget_digit(s32[q], bl, step == level - 1);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < n_sub; ++j) {  // j = 0: least significant chunk
+          uint32_t e[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            e[q] = static_cast<uint32_t>(digit[q]);
+            if (j < n_sub - 1) {  // balanced 7-bit chunk, the rest carried
+              const int32_t rest =
+                  (digit[q] + (1 << (kSubChunkBits - 1))) >> kSubChunkBits;
+              e[q] = static_cast<uint32_t>(digit[q] -
+                                           rest * (1 << kSubChunkBits));
+              digit[q] = rest;
+            }
+          }
+          const uint32_t packed = __byte_perm(__byte_perm(e[0], e[1], 0x0040),
+                                              __byte_perm(e[2], e[3], 0x0040),
+                                              order);
+          const int sub = n_sub - 1 - j;
+          *reinterpret_cast<uint32_t*>(
+              out + (lev * n_sub + sub) * blk_stride + c0) = packed;
+        }
+      }
+    }
+    if (++b == batch) {
+      b = 0;
+      ++ki;
+    }
+    __syncthreads();  // the buffer is refilled by row g + 2's load
+  }
 }
 
 // K3 rotdig_recombine. Replaces
@@ -305,13 +466,21 @@ int row_threads(int n) {  // one thread per 4 coefficients, at most 1024
   return t < 1024 ? t : 1024;
 }
 
-template <typename T>
-int launch_rotdig(const void* acc, const void* a_hat, void* d8, int batch,
-                  int ks1, int n, int base_log, int level, int n_sub,
-                  void* stream) {
-  rotdig_kernel<T><<<dim3(batch, ks1), row_threads(n), n * sizeof(T),
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(acc), static_cast<const int32_t*>(a_hat),
+template <int BL, int L, int NSUB>
+int launch_rotdig64(const void* acc, const void* a_hat, void* d8, int batch,
+                    int ks1, int n, int base_log, int level, int n_sub,
+                    cudaStream_t stream) {
+  const size_t smem = 2 * static_cast<size_t>(n) * sizeof(uint64_t);
+  if (smem > 48 * 1024) {  // N = 4096: 64 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        rotdig64_kernel<BL, L, NSUB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int threads = n / 4 < kRd64Threads ? n / 4 : kRd64Threads;
+  const int blocks = (batch * ks1 + kRd64Rows - 1) / kRd64Rows;
+  rotdig64_kernel<BL, L, NSUB><<<blocks, threads, smem, stream>>>(
+      static_cast<const uint64_t*>(acc), static_cast<const int32_t*>(a_hat),
       static_cast<int8_t*>(d8), batch, ks1, n, base_log, level, n_sub);
   return static_cast<int>(cudaGetLastError());
 }
@@ -345,15 +514,35 @@ int ctt_build_tables(const void* rings, void* out, int r_blocks, int ks1,
 int ctt_rotdig(const void* acc, const void* a_hat, void* d8, int batch,
                int ks1, int n, int base_log, int level, int n_sub,
                void* stream) {
-  return launch_rotdig<uint32_t>(acc, a_hat, d8, batch, ks1, n, base_log,
-                                 level, n_sub, stream);
+  rotdig_kernel<<<dim3(batch, ks1), row_threads(n), n * sizeof(uint32_t),
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(acc), static_cast<const int32_t*>(a_hat),
+      static_cast<int8_t*>(d8), batch, ks1, n, base_log, level, n_sub);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int ctt_rotdig64(const void* acc, const void* a_hat, void* d8, int batch,
                  int ks1, int n, int base_log, int level, int n_sub,
                  void* stream) {
-  return launch_rotdig<uint64_t>(acc, a_hat, d8, batch, ks1, n, base_log,
-                                 level, n_sub, stream);
+  if (base_log < 1 || base_log > 31 || level < 1 || n_sub < 1 ||
+      base_log * level > 64) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+#define CTT_ROTDIG64(BL, L, NSUB)                                           \
+  if (base_log == BL && level == L && n_sub == NSUB) {                      \
+    return launch_rotdig64<BL, L, NSUB>(acc, a_hat, d8, batch, ks1, n,      \
+                                        base_log, level, n_sub, st);        \
+  }
+  // unrolled: the int4 LUT (examples/int4_lut.py), function_bootstrap and
+  // the other phase-A gadgets of chip_smoke.py
+  CTT_ROTDIG64(7, 3, 1)
+  CTT_ROTDIG64(10, 3, 2)
+  CTT_ROTDIG64(16, 2, 3)
+  CTT_ROTDIG64(16, 3, 3)
+#undef CTT_ROTDIG64
+  return launch_rotdig64<0, 0, 0>(acc, a_hat, d8, batch, ks1, n, base_log,
+                                  level, n_sub, st);
 }
 
 int ctt_rotdig_recombine(const void* s, const void* acc, const void* a_hat,

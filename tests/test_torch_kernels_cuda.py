@@ -112,11 +112,17 @@ def test_build_tables_u64_kernel(dev, r_blocks, ks1, n, drop):
 @pytest.mark.parametrize("ks1,n,bl,l,n_sub,b", [
     (2, 1024, 7, 3, 1, 64), (2, 1024, 10, 3, 2, 33), (2, 1024, 16, 2, 3, 16),
     (2, 1024, 16, 3, 3, 16), (3, 64, 16, 4, 3, 8), (2, 4096, 7, 3, 1, 4),
-    (2, 64, 31, 2, 5, 8), (5, 256, 7, 2, 1, 64), (2, 4, 7, 2, 1, 5)])
+    (2, 64, 31, 2, 5, 8), (5, 256, 7, 2, 1, 64), (2, 4, 7, 2, 1, 5),
+    (2, 256, 8, 4, 2, 7), (3, 1024, 11, 3, 2, 5), (2, 2048, 10, 4, 2, 6),
+    (2, 1024, 16, 4, 3, 9), (3, 256, 7, 3, 1, 5)])
 def test_rotdig64_kernel(dev, ks1, n, bl, l, n_sub, b):
     """K4 at the int4 configuration's shape, the three cases of
     tests/test_bootstrap_mxu.py's u64 kernel test, prefixes of 48, 62 and 64
-    bits (beyond the TPU kernel), N = 4 and N = 4096."""
+    bits (beyond the TPU kernel), N = 4 and N = 4096; around the switch from
+    the 64-bit to the 32-bit digit state, prefixes of 32 (all on 32 bits),
+    33 and 40 (one level on 64 bits) and 64 (two), through the generic
+    instance; the unrolled bl 7 l 3 at N = 256; N = 2048; and B * (k+1)
+    rows that are not a multiple of the rows a block (14, 15, 18)."""
     plan = _plan(ks1, n, bl, l, n_sub, bits=64)
     rng = np.random.default_rng(7 * n + b)
     acc, a_hat = _u64(rng, (ks1, b, n), dev), _degrees(rng, n, b, dev)

@@ -277,10 +277,13 @@ def test_rotdig64_plain_matches_pallas64(ks1, n, bl, l):
 
 @pytest.mark.parametrize("ks1,n,bl,l", [(2, 64, 7, 3), (2, 256, 16, 3),
                                         (3, 64, 16, 4), (2, 64, 31, 2),
-                                        (2, 64, 1, 1)])
+                                        (2, 64, 1, 1), (2, 64, 11, 3),
+                                        (2, 64, 10, 4)])
 def test_rotdig64_plain_matches_jax_digit_matrix(ks1, n, bl, l):
     """Prefixes beyond the TPU kernel's 32 bits, up to 64, against the JAX
-    XLA form (negacyclic_monomial_mul + _digit_matrix)."""
+    XLA form (negacyclic_monomial_mul + _digit_matrix); 33 and 40 bits are
+    the shapes where K4 runs one level on its 64-bit state before the
+    32-bit one."""
     plan = _plan(ks1, n, bl, l)
     plan_j = bsx_jax.MxuPlan(lwe_dimension=6, glwe_size=ks1, polynomial_size=n,
                              base_log=bl, level=l, n_sub=plan.n_sub,
