@@ -63,6 +63,23 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           three gate keys at B=2048, equal to fused=False, medians of 3
           beside the unfused ones; one profiled TPU128 call each of the ntt
           AND and the fused AND. K8 and K9 must launch.
+  F       the client side and the 8-bit adder (examples/adder_circuit.py,
+          BASELINE config 5): the DEFAULT and TFHE_LIB boolean keys and the
+          int4 high-level keys of phase C's shapes made from fixed seeds on
+          the AES-CTR streams (the native AES: its AES-NI use and bytes/s
+          logged; a numpy AES call fails the phase), with set-up seconds by
+          part (the BSK's fork tree, mask read, noise draw, device
+          multisum, key preparation); 2048 random 8-bit pairs through
+          circuits.encrypt_uint; the ripple-carry adder on the DEFAULT key's
+          auto backend (ntt: K9 every CMux step) and on its mxu twin (K1,
+          K2, and K3 for the MUX's 4096 rows), every row equal to
+          (a + b) mod 256 with the right carry, the two backends bit
+          identical; the sha256 of every key, of the encrypted planes, of
+          the sums and carry of rows 0-31 and of a base_log 8 keyswitch of
+          64 rows equal to concrete_tpu's (DIGESTS, from
+          tools/phase_f_reference.py), that keyswitch equal to its CPU
+          recomputation; the median of 3 adds per backend (adds/s and
+          gates/s) and one profiled add. K1, K2, K3 and K9 must launch.
 
 Every phase logs its kernels' launches per shape key (launches_by_shape);
 after the phases, each phase-A row of K4-K7 is logged beside the
@@ -76,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import statistics
@@ -85,14 +103,17 @@ import time
 import numpy as np
 import torch
 
-from concrete_tpu_torch import boolean, highlevel as hl, torus
+from concrete_tpu_torch import boolean, highlevel as hl, native, torus
+from concrete_tpu_torch.boolean import circuits
 from concrete_tpu_torch.core import bootstrap as bs
 from concrete_tpu_torch.core import bootstrap_mxu as bsx
 from concrete_tpu_torch.core import bootstrap_ntt as bsntt
 from concrete_tpu_torch.core import bootstrap_nuss as bsn
 from concrete_tpu_torch.boolean.client_key import PLAINTEXT_LOG_SCALING_FACTOR
 from concrete_tpu_torch.core import lwe as lwe_ops
-from concrete_tpu_torch.core.ggsw import bsk_to_ntt
+from concrete_tpu_torch.core.ggsw import StandardBootstrapKey, bsk_to_ntt
+from concrete_tpu_torch.csprng import EncryptionRandomGenerator, aes
+from concrete_tpu_torch.csprng.generator import AesCtrGenerator
 from concrete_tpu_torch.highlevel.lwe import _accumulator, generate_functional_lut
 from concrete_tpu_torch.ops import _cuda
 from concrete_tpu_torch.params import (
@@ -126,12 +147,13 @@ REPLACES = {
 }
 # the kernels each main path must launch (phase B: u32 gates, C: u64 PBS,
 # D: the Nussbaumer backend on both tori, E: the ntt backend and the fused
-# toeplitz step)
+# toeplitz step, F: the 8-bit adder on ntt and on mxu)
 PATH_KERNELS = {"B": ("build_tables", "rotdig", "rotdig_recombine"),
                 "C": ("build_tables", "rotdig64"),
                 "D": ("build_tables", "recombine_inv", "recombine_inv64",
                       "rotdig_fwd_nuss"),
-                "E": ("ntt_cmux", "fused_external_product_acc")}
+                "E": ("ntt_cmux", "fused_external_product_acc"),
+                "F": ("ntt_cmux", "build_tables", "rotdig", "rotdig_recombine")}
 CPU_ROWS = 32
 # the H100 SXM's published peaks: HBM bytes/s, and its float32 non-tensor
 # rate, taken for the kernels' integer ALU work
@@ -191,12 +213,50 @@ NTT_REQUESTS = (100, 2048)
 NTT_CPU_ROWS = 16
 INT4_NTT_BATCH = 256
 
+# phase F: the client side and the 8-bit adder (examples/adder_circuit.py's
+# key seeds; examples/int4_lut.py's key shapes and KSK/BSK seeds, with
+# secret seeds of its own). tools/phase_f_reference.py computes DIGESTS
+# with concrete_tpu from these seeds.
+PHASE_F = {"gate_seeds": (1, 2, 3), "presets": ("DEFAULT", "TFHE_LIB"),
+           "int4_seeds": (5, 6, 1, 2, 3, 4), "rows": 2048, "ref_rows": 32,
+           "nbits": 8, "values_seed": 9, "a_seeds": (4, 5), "b_seeds": (6, 7),
+           "ks": (8, 3), "ks_seeds": (61, 62), "ks_ct_seeds": (63, 64),
+           "ks_rows": 64}
+# sha256[:16] of each, from concrete_tpu on the CPU
+# (tools/phase_f_reference.py)
+DIGESTS = {
+    "DEFAULT lwe_key": "5b9733c303f7ad31",
+    "DEFAULT glwe_key": "f5b40b4f94647f5c",
+    "DEFAULT bsk": "de0f1c34582c5ede",
+    "DEFAULT ksk": "54db03ce92d74145",
+    "TFHE_LIB lwe_key": "e7f5dbc803910bdf",
+    "TFHE_LIB glwe_key": "8f0272af76551d26",
+    "TFHE_LIB bsk": "441c8db9dd669d11",
+    "TFHE_LIB ksk": "d272bfe3681a4bc0",
+    "int4 lwe_key": "f0dccdbe39e412c1",
+    "int4 rlwe_key": "292194c36a39ec0b",
+    "int4 bsk": "688a59a556027501",
+    "int4 ksk": "de7c8a3ad3b0fc1a",
+    "a planes": "fa6b221654412758",
+    "b planes": "57e7536d9e479c50",
+    "adder sums": "3f84947ebcac32fb",
+    "adder carry": "d70851aa61ed64d4",
+    "ks key": "362733fd86195321",
+    "ks out": "d20e812c4ae90f96"}
+
 
 _COUNTED = (bsx, bsn, bsntt)
 # phase -> {kernel: {shape key: launches}} of its main path (read_launches),
 # and phase A's rows that name a shape key (kernel, label, key, ms, bound)
 PATH_SHAPES: dict[str, dict[str, dict[str, int]]] = {}
 KEYED_ROWS: list[tuple[str, str, str, float, float]] = []
+
+
+def adder_values() -> tuple[np.ndarray, np.ndarray]:
+    """Phase F's 8-bit operands, PHASE_F["rows"] each (np.uint64)."""
+    rng = np.random.default_rng(PHASE_F["values_seed"])
+    vals = rng.integers(0, 1 << PHASE_F["nbits"], size=(2, PHASE_F["rows"]))
+    return vals[0].astype(np.uint64), vals[1].astype(np.uint64)
 
 
 def reset_launch_counts():
@@ -1247,6 +1307,166 @@ def phase_e(dev, card):
     return launches
 
 
+def digest(arr) -> str:
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()[:16]
+
+
+def check_digests(found: dict[str, str]):
+    """Each digest equal to concrete_tpu's (DIGESTS)."""
+    bad = {k: (v, DIGESTS[k]) for k, v in found.items() if v != DIGESTS[k]}
+    log(phase="F", digests=found, equal_to_concrete_tpu=not bad)
+    if bad:
+        raise AssertionError(f"phase F digests differ from concrete_tpu's: {bad}")
+
+
+def keygen_parts(cks, sks, dev):
+    """Set-up seconds by part for a boolean key: the server key's BSK made
+    once more with the same seeds by the batched generator with its
+    timings (the same bytes, checked), and the key preparation on the card
+    of the ntt spectra, of the toeplitz rings of an mxu twin and of the KSK
+    limbs. Returns (parts, the mxu twin)."""
+    p = cks.parameters
+    _, m, n = PHASE_F["gate_seeds"]
+    parts = {}
+    t0 = time.perf_counter()
+    bsk = StandardBootstrapKey.generate(
+        cks.lwe_secret_key, cks.glwe_secret_key, p.pbs_base_log, p.pbs_level,
+        p.glwe_modular_std_dev.std_dev, EncryptionRandomGenerator(m, n),
+        device=dev, timings=parts)
+    parts["bsk_s"] = time.perf_counter() - t0
+    if not np.array_equal(bsk.data, sks.bsk_standard):
+        raise AssertionError("the timed BSK differs from gen_keys'")
+    mxu = dataclasses.replace(sks, backend="mxu", _warmed_tiers=set())
+    for name, prep in (("ntt", lambda: sks.bsk_ntt),
+                       ("mxu", lambda: mxu.bsk_mxu),
+                       ("ksk_limbs", lambda: sks.ksk8)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prep()
+        torch.cuda.synchronize()
+        parts[f"key_prep_{name}_s"] = time.perf_counter() - t0
+    mxu._ksk8 = sks.ksk8
+    return parts, mxu
+
+
+ADDER_GATES = 2 + 3 * (PHASE_F["nbits"] - 1)   # XOR + AND, then XOR XOR MUX
+
+
+def phase_f(dev, card):
+    """The client side on the AES-CTR streams and the 8-bit adder at
+    DEFAULT (see the module docstring). Returns the kernel launches of the
+    adders' run."""
+    f = PHASE_F
+    numpy_calls = aes.NUMPY_CALLS
+    aesni = native.has_aesni()
+    gen = AesCtrGenerator(key=1)
+    t0 = time.perf_counter()
+    gen.generate_bytes(1 << 26)
+    log(phase="F", aes="native", library=native.lib_path().name, aesni=aesni,
+        aes_bytes_per_s=(1 << 26) / (time.perf_counter() - t0))
+    found = {}
+    s, m, n = f["gate_seeds"]
+    keys = {}
+    for name in f["presets"]:
+        t0 = time.perf_counter()
+        cks, sks = boolean.gen_keys(PRESETS[name], secret_seed=s, mask_seed=m,
+                                    noise_seed=n, device=dev)
+        keygen_s = time.perf_counter() - t0
+        found.update({f"{name} lwe_key": digest(cks.lwe_secret_key.key),
+                      f"{name} glwe_key": digest(cks.glwe_secret_key.key),
+                      f"{name} bsk": digest(sks.bsk_standard),
+                      f"{name} ksk": digest(sks.ksk)})
+        parts, mxu = keygen_parts(cks, sks, dev)
+        log(phase="F", params=name, keygen_s=keygen_s, **parts, card=card)
+        keys[name] = (cks, sks, mxu)
+    s_lwe, s_rlwe, bm, bn, km, kn = f["int4_seeds"]
+    t0 = time.perf_counter()
+    sk = hl.LWESecretKey.new(INT4["lwe"], secret_seed=s_lwe)
+    rsk = hl.RLWESecretKey.new(INT4["rlwe"], secret_seed=s_rlwe)
+    bsk = hl.LWEBSK.new(sk, rsk, *INT4["pbs"], mask_seed=bm, noise_seed=bn,
+                        device=dev)
+    ksk = hl.LWEKSK.new(rsk.to_lwe_secret_key(), sk, *INT4["ks"], mask_seed=km,
+                        noise_seed=kn, device=dev)
+    log(phase="F", params="int4", keygen_s=time.perf_counter() - t0, card=card)
+    found.update({"int4 lwe_key": digest(sk.inner.key),
+                  "int4 rlwe_key": digest(rsk.inner.key),
+                  "int4 bsk": digest(bsk.coefficient_bsk),
+                  "int4 ksk": digest(ksk.inner.data)})
+    del bsk, ksk
+
+    cks, sks, mxu = keys["DEFAULT"]
+    del keys
+    a, b = adder_values()
+    t0 = time.perf_counter()
+    a_bits = circuits.encrypt_uint(cks, a, f["nbits"], mask_seed=f["a_seeds"][0],
+                                   noise_seed=f["a_seeds"][1])
+    b_bits = circuits.encrypt_uint(cks, b, f["nbits"], mask_seed=f["b_seeds"][0],
+                                   noise_seed=f["b_seeds"][1])
+    encrypt_s = time.perf_counter() - t0
+    found.update({"a planes": digest(a_bits), "b planes": digest(b_bits)})
+    if sks.resolved_backend() != "ntt":
+        raise AssertionError(f"DEFAULT auto is {sks.resolved_backend()}, not ntt")
+    for key in (sks, mxu):
+        key.warmup([f["rows"]], gates=("xor", "and"), mux=True)
+    a_dev, b_dev = torus.from_numpy(a_bits, dev), torus.from_numpy(b_bits, dev)
+    log(phase="F", rows=f["rows"], encrypt_uint_s=encrypt_s)
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    outs = {key.resolved_backend(): circuits.ripple_carry_adder(key, a_dev, b_dev)
+            for key in (sks, mxu)}
+    torch.cuda.synchronize()
+    launches = read_launches("F")
+    log(phase="F", main_path_s=time.perf_counter() - t0, launches=launches)
+
+    sums, carry = outs["ntt"]
+    if not (torch.equal(sums, outs["mxu"][0]) and torch.equal(carry, outs["mxu"][1])):
+        raise AssertionError("the adder's ntt and mxu outputs differ")
+    total = a + b
+    got = circuits.decrypt_uint(cks, sums)
+    wrong = int(np.sum(got != total % 256))
+    wrong_carry = int(np.sum(cks.decrypt(carry) != (total >= 256)))
+    r = f["ref_rows"]
+    found.update({"adder sums": digest(torus.to_numpy(sums[:, :r])),
+                  "adder carry": digest(torus.to_numpy(carry[:r]))})
+    log(phase="F", rows=f["rows"], wrong_sums=wrong, wrong_carries=wrong_carry,
+        backends_bit_identical=True)
+    if wrong or wrong_carry:
+        raise AssertionError(f"adder: {wrong} sums, {wrong_carry} carries wrong")
+    for key in (sks, mxu):
+        med = median_s(lambda key=key: circuits.ripple_carry_adder(key, a_dev, b_dev),
+                       reps=3)
+        log(phase="F", backend=key.resolved_backend(), rows=f["rows"],
+            ms_per_add=med * 1e3, adds_per_s=f["rows"] / med,
+            gates_per_s=ADDER_GATES * f["rows"] / med, card=card)
+    profile_call(f"DEFAULT ntt 8-bit add B={f['rows']}",
+                 lambda: circuits.ripple_carry_adder(sks, a_dev, b_dev), card)
+
+    big = cks.glwe_secret_key.into_lwe_key()
+    bl, lv = f["ks"]
+    std = PRESETS["DEFAULT"].lwe_modular_std_dev.std_dev
+    kskey = lwe_ops.LweKeyswitchKey.generate(
+        big, cks.lwe_secret_key, bl, lv, std,
+        EncryptionRandomGenerator(*f["ks_seeds"]))
+    msgs = np.arange(f["ks_rows"], dtype=np.uint32) << np.uint32(24)
+    cts = big.encrypt(msgs, std, EncryptionRandomGenerator(*f["ks_ct_seeds"]))
+    on_card = lwe_ops.keyswitch(kskey.data, torus.from_numpy(cts, dev),
+                                base_log=bl, level_count=lv).cpu()
+    on_cpu = lwe_ops.keyswitch(kskey.data, torus.from_numpy(cts),
+                               base_log=bl, level_count=lv)
+    if not torch.equal(on_card, on_cpu):
+        raise AssertionError("the general keyswitch on the card differs from "
+                             "its CPU recomputation")
+    found.update({"ks key": digest(kskey.data),
+                  "ks out": digest(torus.to_numpy(on_card))})
+    log(phase="F", keyswitch=f"{big.dimension}->{cks.lwe_secret_key.dimension}",
+        base_log=bl, level=lv, rows=f["ks_rows"], cpu_bit_identical=True)
+    check_digests(found)
+    if aes.NUMPY_CALLS != numpy_calls:
+        raise AssertionError("phase F ran the numpy AES")
+    return launches
+
+
 def log_row_launches():
     """Each keyed phase-A row beside the launches of its shape key on the
     main paths that run its kernel (phases B-E) and launches x (ms - bound
@@ -1268,8 +1488,8 @@ def check_launched(path: str, launches: dict):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="ABCDE",
-                        help="phases to run (default all: ABCDE)")
+    parser.add_argument("--phases", default="ABCDEF",
+                        help="phases to run (default all: ABCDEF)")
     phases = parser.parse_args().phases
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs one GPU")
@@ -1313,7 +1533,8 @@ def main():
         del sks, cpu_check
         torch.cuda.empty_cache()
 
-    for path, run in (("C", phase_c), ("D", phase_d), ("E", phase_e)):
+    for path, run in (("C", phase_c), ("D", phase_d), ("E", phase_e),
+                      ("F", phase_f)):
         if path in phases:
             t0 = time.perf_counter()
             path_launches[path] = run(dev, card)

@@ -5,18 +5,19 @@ true = +1/8 (1 << 29 on the u32 torus), false = -1/8 (7 << 29); decryption
 is a sign test of the phase. Keys and ciphertexts are np.uint32; decrypt
 also takes the int32 tensors the server returns.
 
-Randomness comes from numpy Generators seeded with `secret_seed`,
-`mask_seed` and `noise_seed`, not from the JAX package's AES-CTR streams:
-the same seeds give other keys than ``concrete_tpu``. Keys saved by
-``concrete_tpu`` load here unchanged (`load`).
+Keys, masks and noise come from the AES-CTR streams seeded with
+`secret_seed`, `mask_seed` and `noise_seed`: equal seeds give concrete_tpu's
+keys and ciphertexts, byte for byte. Keys saved by ``concrete_tpu`` load
+here unchanged (`load`).
 
 Example:
     >>> from concrete_tpu_torch.params import BooleanParameters
     >>> from concrete_tpu_torch.dispersion import StandardDev
     >>> tiny = BooleanParameters(4, 1, 16, StandardDev(0.0), StandardDev(0.0), 7, 2, 2, 2)
     >>> cks = ClientKey.new(tiny, secret_seed=1)
-    >>> cks.decrypt(cks.encrypt([True, False], mask_seed=2, noise_seed=3)).tolist()
-    [True, False]
+    >>> ct = cks.encrypt([True, False], mask_seed=2, noise_seed=3)
+    >>> cks.decrypt(ct).tolist(), cks.lwe_secret_key.key.tolist(), int(ct[0, -1])
+    ([True, False], [0, 0, 0, 1], 1097489848)
 """
 
 from __future__ import annotations
@@ -27,9 +28,10 @@ import numpy as np
 
 from ..core.glwe import GlweSecretKey
 from ..core.lwe import LweSecretKey
+from ..csprng import EncryptionRandomGenerator, SecretRandomGenerator
 from ..dispersion import StandardDev
 from ..params import BooleanParameters
-from ..torus import EncryptionRandom, to_numpy
+from ..torus import to_numpy
 
 PLAINTEXT_LOG_SCALING_FACTOR = 3
 PLAINTEXT_TRUE = 1 << (32 - PLAINTEXT_LOG_SCALING_FACTOR)              # +1/8
@@ -47,10 +49,10 @@ class ClientKey:
     @classmethod
     def new(cls, parameters: BooleanParameters, *,
             secret_seed: int | None = None) -> "ClientKey":
-        rng = np.random.default_rng(secret_seed)
-        lwe_sk = LweSecretKey.generate_binary(parameters.lwe_dimension, rng)
+        gen = SecretRandomGenerator(secret_seed)
+        lwe_sk = LweSecretKey.generate_binary(parameters.lwe_dimension, gen)
         glwe_sk = GlweSecretKey.generate_binary(
-            parameters.glwe_dimension, parameters.polynomial_size, rng)
+            parameters.glwe_dimension, parameters.polynomial_size, gen)
         return cls(lwe_secret_key=lwe_sk, glwe_secret_key=glwe_sk,
                    parameters=parameters)
 
@@ -62,7 +64,7 @@ class ClientKey:
         plain = np.where(msgs, PLAINTEXT_TRUE, PLAINTEXT_FALSE).astype(np.uint32)
         return self.lwe_secret_key.encrypt(
             plain, self.parameters.lwe_modular_std_dev.std_dev,
-            EncryptionRandom.new(mask_seed, noise_seed))
+            EncryptionRandomGenerator(mask_seed, noise_seed))
 
     def decrypt(self, ciphertexts) -> np.ndarray:
         """Decrypt np.uint32 arrays or int32 tensors -> bool array (sign
@@ -101,7 +103,15 @@ class ClientKey:
                 ks_level=int(p[6]),
             )
             return cls(
-                lwe_secret_key=LweSecretKey(d["lwe_key"].astype(np.uint32)),
-                glwe_secret_key=GlweSecretKey(d["glwe_key"].astype(np.uint32)),
+                lwe_secret_key=LweSecretKey(d["lwe_key"].astype(np.uint32),
+                                            "binary", 32),
+                glwe_secret_key=GlweSecretKey(d["glwe_key"].astype(np.uint32),
+                                              "binary", 32),
                 parameters=params,
             )
+
+    def decrypt_big_key(self, ciphertexts) -> np.ndarray:
+        """Decrypt under the flattened GLWE ("big") key -> bool array: the
+        key of the bootstrap's output before the keyswitch."""
+        big = self.glwe_secret_key.into_lwe_key()
+        return big.decrypt(to_numpy(ciphertexts)) < np.uint32(1 << 31)

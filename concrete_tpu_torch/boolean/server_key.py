@@ -41,9 +41,10 @@ from ..core import bootstrap_ntt as bsntt
 from ..core import bootstrap_nuss as bsn
 from ..core import lwe as lwe_ops
 from ..core.ggsw import StandardBootstrapKey, bsk_to_ntt
+from ..csprng import EncryptionRandomGenerator
 from ..ops import _cuda
 from ..params import BooleanParameters
-from ..torus import EncryptionRandom, as_torus, from_numpy, i32
+from ..torus import as_torus, from_numpy, i32
 from .client_key import ClientKey, PLAINTEXT_LOG_SCALING_FACTOR, PLAINTEXT_TRUE
 
 # gate offsets as int32 bit patterns (the negative ones are u32 > 2^31)
@@ -139,15 +140,12 @@ class ServerKey:
 
     @property
     def ksk8(self) -> torch.Tensor:
-        """int8 limb-prepared keyswitch key [k*N*l_ks, 4*(n+1)]
-        (lwe.ksk_to_limbs), on every backend: concrete_tpu's _keyswitch_key
-        takes it on mxu and nuss, and its u32 keyswitch on ntt gives the
-        same bits."""
+        """The keyswitch key's int8 limb planes [k*N*l_ks, 4*(n+1)]
+        (lwe.ksk_to_limbs) on the device, which every gate switches with
+        (lwe.keyswitch_prepared: the int8-digit product where it takes the
+        key, the general keyswitch's elsewhere; on every backend the bits
+        of concrete_tpu's u32 keyswitch)."""
         if self._ksk8 is None:
-            if not (self.cfg.ks_base_log <= 7
-                    and self.ksk.shape[0] * self.ksk.shape[1] * 8192 < 2 ** 31):
-                raise NotImplementedError(
-                    "only the int8 limb keyswitch is ported (ks_base_log <= 7)")
             self._ksk8 = torch.from_numpy(
                 lwe_ops.ksk_to_limbs(self.ksk)).to(self.device)
         return self._ksk8
@@ -159,17 +157,18 @@ class ServerKey:
             noise_seed: int | None = None, device=None) -> "ServerKey":
         """ServerKey::new (server_key/mod.rs:55-111): the BSK under the GLWE
         key and the keyswitch key from the big LWE key back to the small one.
-        Masks and noise come from numpy Generators seeded with `mask_seed`
-        and `noise_seed` (not the JAX package's AES-CTR streams)."""
+        Masks and noise come from the AES-CTR streams seeded with
+        `mask_seed` and `noise_seed`: concrete_tpu's bytes. The BSK's
+        mask-times-key products run on `device`."""
         p = cks.parameters
         device = _cuda.resolve_device(device)
-        rand = EncryptionRandom.new(mask_seed, noise_seed)
+        gen = EncryptionRandomGenerator(mask_seed, noise_seed)
         bsk = StandardBootstrapKey.generate(
             cks.lwe_secret_key, cks.glwe_secret_key, p.pbs_base_log,
-            p.pbs_level, p.glwe_modular_std_dev.std_dev, rand, device=device)
+            p.pbs_level, p.glwe_modular_std_dev.std_dev, gen, device=device)
         ksk = lwe_ops.LweKeyswitchKey.generate(
             cks.glwe_secret_key.into_lwe_key(), cks.lwe_secret_key,
-            p.ks_base_log, p.ks_level, p.lwe_modular_std_dev.std_dev, rand)
+            p.ks_base_log, p.ks_level, p.lwe_modular_std_dev.std_dev, gen)
         return cls.from_arrays(bsk.data, ksk.data, p, device=device)
 
     @classmethod
@@ -353,7 +352,7 @@ class ServerKey:
                                         both)
             summed = pbs[0] + pbs[1]
             summed[:, -1] += _EIGHTH
-            return lwe_ops.keyswitch_limbs(
+            return lwe_ops.keyswitch_prepared(
                 self.ksk8, summed, base_log=self.cfg.ks_base_log,
                 level_count=self.cfg.ks_level)
 

@@ -52,6 +52,7 @@ import torch
 from ..math import decomposition, polynomial
 from ..ops import _cuda
 from ..torus import carrier
+from . import checks
 from . import lwe as lwe_ops
 from .bootstrap import (
     ServerConfig,
@@ -704,12 +705,9 @@ def blind_rotate_mxu(cfg: ServerConfig, bsk_rings: torch.Tensor,
     if fused and plan.bits != 32:
         raise ValueError("fused=True runs the u32 torus only")
     n_lwe, N, ks1 = cfg.lwe_dimension, plan.polynomial_size, plan.glwe_size
-    if tuple(bsk_rings.shape) != (n_lwe, plan.row_blocks, ks1 * plan.n_words,
-                                  2 * N):
-        raise ValueError(f"bsk_rings: shape {tuple(bsk_rings.shape)} does "
-                         "not match the configuration")
-    if lwe.shape[-1] != n_lwe + 1 or tuple(lut.shape[-2:]) != (ks1, N):
-        raise ValueError("lwe / lut shapes do not match the configuration")
+    checks.check_bsk_mxu(bsk_rings, cfg)
+    checks.check_lwe(lwe, n_lwe)
+    checks.check_glwe(lut, ks1, N, "accumulator")
     if lwe.dtype != carrier(plan.bits) or lut.dtype != lwe.dtype:
         raise TypeError(f"u{plan.bits} torus tensors are {carrier(plan.bits)}")
     lead = lwe.shape[:-1]
@@ -752,7 +750,8 @@ def bootstrap_many_lut_mxu(cfg: ServerConfig, bsk_rings, lut, lwe,
 def bootstrap_keyswitch_mxu(cfg: ServerConfig, bsk_rings, ksk8, lut, lwe, *,
                             fused: bool = False):
     """PBS + keyswitch, the per-gate pipeline (server_key/mod.rs:133-166),
-    against an int8 limb-prepared keyswitch key (lwe.ksk_to_limbs)."""
+    against a limb-prepared keyswitch key (lwe.ksk_to_limbs; any ks_base_log,
+    lwe.keyswitch_prepared)."""
     big = bootstrap_mxu(cfg, bsk_rings, lut, lwe, fused=fused)
-    return lwe_ops.keyswitch_limbs(ksk8, big, base_log=cfg.ks_base_log,
-                                   level_count=cfg.ks_level)
+    return lwe_ops.keyswitch_prepared(ksk8, big, base_log=cfg.ks_base_log,
+                                      level_count=cfg.ks_level)

@@ -44,6 +44,7 @@ import torch
 from ..math import crt, decomposition, ntt, polynomial
 from ..ops import _cuda
 from ..torus import carrier
+from . import checks
 from . import lwe as lwe_ops
 from .bootstrap import (
     ServerConfig,
@@ -282,12 +283,11 @@ def blind_rotate(cfg: ServerConfig, bsk_ntt: torch.Tensor, lut: torch.Tensor,
     [..., k+1, N]. Each step is K9 (ntt_cmux) where it applies, the u32
     torus with two primes, else the stacked composition (ntt_cmux_plain)."""
     n_lwe, N, ks1 = cfg.lwe_dimension, cfg.polynomial_size, cfg.glwe_size
-    expect = (n_lwe, len(cfg.primes), cfg.pbs_level, ks1, ks1, N)
-    if tuple(bsk_ntt.shape) != expect or bsk_ntt.dtype != torch.int32:
-        raise ValueError(f"bsk_ntt: int32 {expect} expected, got "
-                         f"{bsk_ntt.dtype} {tuple(bsk_ntt.shape)}")
-    if lwe.shape[-1] != n_lwe + 1 or tuple(lut.shape[-2:]) != (ks1, N):
-        raise ValueError("lwe / lut shapes do not match the configuration")
+    checks.check_bsk_ntt(bsk_ntt, cfg)
+    if bsk_ntt.dtype != torch.int32:
+        raise ValueError(f"bsk_ntt: int32 expected, got {bsk_ntt.dtype}")
+    checks.check_lwe(lwe, n_lwe)
+    checks.check_glwe(lut, ks1, N, "accumulator")
     if lwe.dtype != carrier(cfg.bits) or lut.dtype != lwe.dtype:
         raise TypeError(f"u{cfg.bits} torus tensors are {carrier(cfg.bits)}")
     lead = lwe.shape[:-1]
@@ -328,8 +328,9 @@ def bootstrap_many_lut(cfg: ServerConfig, bsk_ntt, lut, lwe,
 
 def bootstrap_keyswitch(cfg: ServerConfig, bsk_ntt, ksk8, lut, lwe):
     """PBS + keyswitch, the per-gate pipeline (server_key/mod.rs:133-166),
-    against an int8 limb-prepared keyswitch key (lwe.ksk_to_limbs): the same
-    bits as concrete_tpu's u32 keyswitch, which its ntt gates take."""
+    against a limb-prepared keyswitch key (lwe.ksk_to_limbs; any ks_base_log,
+    lwe.keyswitch_prepared): the same bits as concrete_tpu's u32 keyswitch,
+    which its ntt gates take."""
     big = bootstrap(cfg, bsk_ntt, lut, lwe)
-    return lwe_ops.keyswitch_limbs(ksk8, big, base_log=cfg.ks_base_log,
-                                   level_count=cfg.ks_level)
+    return lwe_ops.keyswitch_prepared(ksk8, big, base_log=cfg.ks_base_log,
+                                      level_count=cfg.ks_level)

@@ -737,7 +737,8 @@ def bootstrap_many_lut_nuss(cfg: ServerConfig, bsk_rings, lut, lwe,
 def bootstrap_keyswitch_nuss(cfg: ServerConfig, bsk_rings, ksk8, lut, lwe, *,
                              l: int | None = None):
     """PBS + keyswitch, the per-gate pipeline (server_key/mod.rs:133-166),
-    against an int8 limb-prepared keyswitch key (lwe.ksk_to_limbs)."""
+    against a limb-prepared keyswitch key (lwe.ksk_to_limbs; any ks_base_log,
+    lwe.keyswitch_prepared)."""
     big = bootstrap_nuss(cfg, bsk_rings, lut, lwe, l=l)
-    return lwe_ops.keyswitch_limbs(ksk8, big, base_log=cfg.ks_base_log,
-                                   level_count=cfg.ks_level)
+    return lwe_ops.keyswitch_prepared(ksk8, big, base_log=cfg.ks_base_log,
+                                      level_count=cfg.ks_level)

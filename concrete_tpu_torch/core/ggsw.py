@@ -1,25 +1,31 @@
-"""GGSW encryption of the bootstrap key (crypto/bootstrap/standard/mod.rs).
+"""GGSW encryption and the bootstrap key (crypto/secret/glwe.rs,
+crypto/bootstrap/standard/mod.rs), client side.
 
 A GGSW ciphertext is [l, k+1, k+1, N]: `level` matrices of k+1 GLWE rows. A
 bootstrap key is one GGSW per LWE key bit, [n, l, k+1, k+1, N] np.uint32
-or np.uint64 (the GLWE key's torus). All rows are assembled with one batched
-multisum. bsk_to_ntt converts a key to the ntt backend's spectra.
+or np.uint64 (the GLWE key's torus). Randomness is drawn from forked
+children of the AES-CTR streams in the reference's order, as concrete_tpu
+draws it, so equal seeds give the same bytes; the rows are assembled with
+one batched multisum, on a device of the caller's choice. bsk_to_ntt
+converts a key to the ntt backend's spectra.
 
 Example:
-    >>> import numpy as np
     >>> from concrete_tpu_torch.core.glwe import GlweSecretKey
     >>> from concrete_tpu_torch.core.lwe import LweSecretKey
-    >>> from concrete_tpu_torch.torus import EncryptionRandom
-    >>> rng = np.random.default_rng(1)
-    >>> lsk = LweSecretKey.generate_binary(3, rng)
-    >>> gsk = GlweSecretKey.generate_binary(1, 16, rng)
+    >>> from concrete_tpu_torch.csprng import EncryptionRandomGenerator, SecretRandomGenerator
+    >>> sgen = SecretRandomGenerator(1)
+    >>> lsk = LweSecretKey.generate_binary(3, sgen)
+    >>> gsk = GlweSecretKey.generate_binary(1, 16, sgen)
     >>> bsk = StandardBootstrapKey.generate(lsk, gsk, 4, 2, 0.0,
-    ...                                     EncryptionRandom.new(2, 3))
-    >>> bsk.data.shape            # [n, levels, k+1, k+1, N]
-    (3, 2, 2, 2, 16)
-    >>> gsk64 = GlweSecretKey.generate_binary(1, 16, rng, bits=64)
+    ...                                     EncryptionRandomGenerator(2, 3))
+    >>> bsk.data.shape, int(bsk.data[0, 0, 0, 0, 0])   # [n, levels, k+1, k+1, N]
+    ((3, 2, 2, 2, 16), 600971201)
+    >>> g = encrypt_constant_ggsw(gsk, 1, 4, 2, 0.0, EncryptionRandomGenerator(1, 2))
+    >>> g.shape                                         # [levels, k+1, k+1, N]
+    (2, 2, 2, 16)
+    >>> gsk64 = GlweSecretKey.generate_binary(1, 16, sgen, bits=64)
     >>> StandardBootstrapKey.generate(lsk, gsk64, 4, 2, 0.0,
-    ...     EncryptionRandom.new(2, 3)).data.dtype
+    ...     EncryptionRandomGenerator(2, 3)).data.dtype
     dtype('uint64')
     >>> spectra = bsk_to_ntt(bsk.data, (2013265921, 1811939329), 32)
     >>> spectra.shape, spectra.dtype          # [n, P, levels, k+1, k+1, N]
@@ -29,23 +35,65 @@ Example:
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from ..csprng import EncryptionRandomGenerator
+from ..csprng.generator import AesCtrGenerator, State
+from ..csprng.random import RandomGenerator, batch_fill_gaussian_torus
 from ..math import crt, ntt
-from ..torus import UNSIGNED, EncryptionRandom, as_torus
+from ..torus import UNSIGNED, as_torus, to_numpy
 from .glwe import GlweSecretKey
 
 
-def assemble_ggsw(glwe_key: GlweSecretKey, base_log: int, level_count: int,
-                  masks: np.ndarray, noises: np.ndarray,
-                  values: np.ndarray, device=None) -> np.ndarray:
-    """GGSW rows from randomness: masks [n, l, k+1, k, N], noises
-    [n, l, k+1, N], values [n] -> [n, l, k+1, k+1, N], encryptions of zero
-    plus the gadget constants on the diagonals (products on `device`)."""
+def _draw_ggsw_randomness(glwe_key: GlweSecretKey, level_count: int,
+                          std: float, gen: EncryptionRandomGenerator):
+    """Mask and noise of one GGSW in the reference's fork order
+    (secret/glwe.rs:775-820): a fork per level, then per row; each row draws
+    noise [N], then masks [k, N] from its own child."""
+    bits = glwe_key.bits
+    k, n = glwe_key.dimension, glwe_key.polynomial_size
+    masks = np.zeros((level_count, k + 1, k, n), dtype=UNSIGNED[bits])
+    noises = np.zeros((level_count, k + 1, n), dtype=UNSIGNED[bits])
+    for lev_idx, lev_gen in enumerate(
+            gen.fork_ggsw_to_ggsw_levels(bits, level_count, k + 1, n)):
+        for row_idx, row_gen in enumerate(
+                lev_gen.fork_ggsw_level_to_glwe(bits, k + 1, n)):
+            m, nz = glwe_key.draw_randomness(1, std, row_gen)
+            masks[lev_idx, row_idx] = m[0]
+            noises[lev_idx, row_idx] = nz[0]
+    return masks, noises
+
+
+def encrypt_constant_ggsw(glwe_key: GlweSecretKey, value: int, base_log: int,
+                          level_count: int, std: float,
+                          gen: EncryptionRandomGenerator,
+                          device=None) -> np.ndarray:
+    """GGSW encryption of a constant -> [l, k+1, k+1, N]
+    (secret/glwe.rs:775-860): each row a fresh encryption of zero from its
+    forked child, plus value * q/B^level at coefficient 0 of the row's
+    diagonal polynomial."""
+    masks, noises = _draw_ggsw_randomness(glwe_key, level_count, std, gen)
+    return assemble_ggsw(glwe_key, int(value), base_log, level_count, masks,
+                         noises, device=device)[0]
+
+
+def assemble_ggsw(glwe_key: GlweSecretKey, value: int, base_log: int,
+                  level_count: int, masks: np.ndarray, noises: np.ndarray,
+                  values: np.ndarray | None = None,
+                  device=None) -> np.ndarray:
+    """GGSW rows from randomness: masks [l, k+1, k, N] or [n, l, k+1, k, N],
+    noises [l, k+1, N] or [n, l, k+1, N] -> [n, l, k+1, k+1, N]
+    (n = 1 without `values`), encryptions of zero plus the gadget constants
+    of `value` (or of each of `values` [n]) on the diagonals; the products
+    run on `device`."""
     rows = glwe_key.encrypt_from_randomness(
         masks, noises, np.zeros(noises.shape, dtype=noises.dtype), device)
+    if values is None:
+        values = np.array([value], dtype=np.int64)
+        rows = rows[None]
     _add_gadget_diagonals(rows, values, base_log, level_count, glwe_key.bits)
     return rows
 
@@ -65,28 +113,104 @@ def _add_gadget_diagonals(rows: np.ndarray, values: np.ndarray,
 @dataclasses.dataclass
 class StandardBootstrapKey:
     """Coefficient-domain bootstrap key, data [n, l, k+1, k+1, N] np.uint32
-    or np.uint64."""
+    or np.uint64 (bootstrap/standard/mod.rs:57-210)."""
 
     data: np.ndarray
     base_log: int
     level_count: int
+    bits: int = 32
 
     @classmethod
     def generate(cls, lwe_key, glwe_key: GlweSecretKey, base_log: int,
-                 level_count: int, std: float, rand: EncryptionRandom,
-                 device=None) -> "StandardBootstrapKey":
-        """One GGSW encryption of each LWE key bit under the GLWE key, with
-        uniform masks and Gaussian noise of std `std` from `rand`; the
-        mask-times-key products run on `device` (the CPU by default), with
-        the same bytes on every device."""
+                 level_count: int, std: float, gen: EncryptionRandomGenerator,
+                 *, batched: bool = True, device=None,
+                 timings: dict | None = None) -> "StandardBootstrapKey":
+        """fill_with_new_key (standard/mod.rs:172-209): one GGSW encryption of
+        each LWE key bit under the GLWE key, the generator forked per key
+        bit, with the same bytes as concrete_tpu and as the reference's
+        rayon par_fill; the mask-times-key products run on `device` (the CPU
+        by default).
+
+        ``batched=False`` draws the randomness bit after bit. The default
+        reads it in bulk: the nested fork budgets (key bit -> level -> row)
+        are consumed exactly by the mask draws, so the whole mask tensor is
+        one contiguous range of the parent's mask stream from its state
+        before the fork, read in one sweep; every row's noise child is
+        drawn by one batch_fill_gaussian_torus. The multisum is dispatched
+        on the device before the host draws the noise, and its result
+        copied into pinned memory without blocking, so that on a GPU the
+        products and the copy run under the noise draw; the host waits on
+        the copy's event before it reads the result. `timings`, when given,
+        receives the batched form's host seconds by part (fork tree, mask
+        read, multisum dispatch, noise draw, wait for the products,
+        assembly) and, on a GPU, the products' device ms between two CUDA
+        events."""
+        bits = glwe_key.bits
         k, n = glwe_key.dimension, glwe_key.polynomial_size
         n_lwe = lwe_key.dimension
-        bits = glwe_key.bits
-        masks = rand.fill_mask((n_lwe, level_count, k + 1, k, n), bits)
-        noises = rand.fill_noise((n_lwe, level_count, k + 1, n), std, bits)
-        data = assemble_ggsw(glwe_key, base_log, level_count, masks, noises,
-                             lwe_key.key, device)
-        return cls(data=data, base_log=base_log, level_count=level_count)
+        values = lwe_key.key.astype(np.int64)
+        if not batched:
+            dt = UNSIGNED[bits]
+            masks = np.zeros((n_lwe, level_count, k + 1, k, n), dtype=dt)
+            noises = np.zeros((n_lwe, level_count, k + 1, n), dtype=dt)
+            for i, g in enumerate(gen.fork_bsk_to_ggsw(bits, n_lwe, level_count,
+                                                       k + 1, n)):
+                masks[i], noises[i] = _draw_ggsw_randomness(
+                    glwe_key, level_count, std, g)
+            data = assemble_ggsw(glwe_key, 0, base_log, level_count, masks,
+                                 noises, values=values, device=device)
+            return cls(data, base_log, level_count, bits)
+
+        clock = [time.perf_counter()]
+        marks = {}
+
+        def mark(name):
+            clock.append(time.perf_counter())
+            marks[name] = clock[-1] - clock[-2]
+
+        mask_start = gen.mask.inner.state.gpos
+        noise_gens = []
+        for g in gen.fork_bsk_to_ggsw(bits, n_lwe, level_count, k + 1, n):
+            for lev_gen in g.fork_ggsw_to_ggsw_levels(bits, level_count,
+                                                      k + 1, n):
+                noise_gens.extend(
+                    rg.noise for rg in lev_gen.fork_ggsw_level_to_glwe(
+                        bits, k + 1, n))
+        mark("fork_s")
+        reader = RandomGenerator(_inner=AesCtrGenerator(
+            state=State(gpos=mask_start),
+            _round_keys=gen.mask.inner.round_keys))
+        rows = n_lwe * level_count * (k + 1)
+        masks = reader.random_uniform_array(rows * k * n, bits).reshape(
+            n_lwe, level_count, k + 1, k, n)
+        mark("mask_read_s")
+        on_gpu = torch.device(device or "cpu").type == "cuda"
+        if on_gpu:
+            start, ready = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            start.record()
+        products = glwe_key.multisum(masks, device)
+        if on_gpu:
+            host = torch.empty(products.shape, dtype=products.dtype,
+                               pin_memory=True)
+            host.copy_(products, non_blocking=True)
+            ready.record()
+            products = host
+        mark("multisum_dispatch_s")
+        noises = batch_fill_gaussian_torus(noise_gens, n, std, bits).reshape(
+            n_lwe, level_count, k + 1, n)
+        mark("noise_draw_s")
+        if on_gpu:
+            ready.synchronize()
+            marks["multisum_device_ms"] = start.elapsed_time(ready)
+        mark("multisum_wait_s")
+        bodies = noises + to_numpy(products)
+        data = np.concatenate([masks, bodies[..., None, :]], axis=-2)
+        _add_gadget_diagonals(data, values, base_log, level_count, bits)
+        mark("assemble_s")
+        if timings is not None:
+            timings.update(marks)
+        return cls(data, base_log, level_count, bits)
 
 
 def ggsw_to_ntt(ggsw, primes: tuple[int, ...], bits: int, *,

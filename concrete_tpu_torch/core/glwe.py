@@ -1,16 +1,25 @@
-"""GLWE secret keys and encryption (crypto/secret/glwe.rs), client side.
+"""GLWE secret keys, encryption and decryption (crypto/secret/glwe.rs).
 
 A GLWE ciphertext is [k+1, N] with the body polynomial last. Keys and
-ciphertexts are np.uint32 (u32 torus) or np.uint64 (u64 torus); the
-mask-times-key products run through ``math.polynomial.negacyclic_multisum``
-(exact, float64), on a device of the caller's choice (the card at large N).
+ciphertexts are np.uint32 (u32 torus) or np.uint64 (u64 torus). Masks and
+noise come from the AES-CTR streams of :mod:`concrete_tpu_torch.csprng` in
+concrete_tpu's order (noise first, then the masks), so equal seeds give the
+same bytes. The mask-times-key products run through
+``math.polynomial.negacyclic_multisum`` (exact for every key kind, float64),
+on a device of the caller's choice (the CPU by default; the card for key
+generation at full width): every device gives the same bytes.
 
 Example:
     >>> import numpy as np
-    >>> sk = GlweSecretKey.generate_binary(2, 8, np.random.default_rng(1))
-    >>> sk.key.shape, sk.into_lwe_key().dimension
-    ((2, 8), 16)
-    >>> GlweSecretKey.generate_binary(1, 8, np.random.default_rng(1), bits=64).key.dtype
+    >>> from concrete_tpu_torch.csprng import EncryptionRandomGenerator, SecretRandomGenerator
+    >>> sk = GlweSecretKey.generate_binary(2, 8, SecretRandomGenerator(1))
+    >>> sk.key.shape, sk.into_lwe_key().dimension, sk.key[0].tolist()
+    ((2, 8), 16, [0, 0, 0, 1, 1, 1, 0, 1])
+    >>> ct = sk.encrypt(np.arange(8, dtype=np.uint32) << 28, 0.0,
+    ...                 EncryptionRandomGenerator(2, 3))
+    >>> ct.shape, (sk.decrypt(ct) >> 28).tolist()
+    ((3, 8), [0, 1, 2, 3, 4, 5, 6, 7])
+    >>> GlweSecretKey.generate_ternary(1, 8, SecretRandomGenerator(1), bits=64).key.dtype
     dtype('uint64')
 """
 
@@ -19,17 +28,21 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
+from ..csprng import EncryptionRandomGenerator, SecretRandomGenerator
 from ..math import polynomial
-from ..torus import UNSIGNED, from_numpy, to_numpy
+from ..torus import UNSIGNED, as_torus, carrier, from_numpy, to_numpy
 
 
 @dataclasses.dataclass
 class GlweSecretKey:
     """A GLWE secret key: [k, N] np.uint32 / np.uint64 key polynomials
-    (secret/glwe.rs:31); `bits` is the torus width."""
+    (secret/glwe.rs:31); `kind` is binary, ternary, gaussian or uniform and
+    `bits` the torus width."""
 
     key: np.ndarray
+    kind: str = "binary"
     bits: int = 32
 
     @property
@@ -41,28 +54,108 @@ class GlweSecretKey:
         return self.key.shape[1]
 
     @classmethod
+    def _generate(cls, kind: str, dim: int, poly_size: int,
+                  gen: SecretRandomGenerator, bits: int):
+        draw = getattr(gen, f"generate_{kind}_array")
+        return cls(draw(dim * poly_size, bits).reshape(dim, poly_size), kind,
+                   bits)
+
+    @classmethod
     def generate_binary(cls, dim: int, poly_size: int,
-                        rng: np.random.Generator, bits: int = 32):
-        """Uniform binary key drawn from `rng` (a numpy Generator, not the
-        JAX package's AES-CTR stream)."""
-        return cls(rng.integers(0, 2, size=(dim, poly_size),
-                                dtype=UNSIGNED[bits]), bits)
+                        gen: SecretRandomGenerator, bits: int = 32):
+        return cls._generate("binary", dim, poly_size, gen, bits)
+
+    @classmethod
+    def generate_ternary(cls, dim: int, poly_size: int,
+                         gen: SecretRandomGenerator, bits: int = 32):
+        return cls._generate("ternary", dim, poly_size, gen, bits)
+
+    @classmethod
+    def generate_gaussian(cls, dim: int, poly_size: int,
+                          gen: SecretRandomGenerator, bits: int = 32):
+        return cls._generate("gaussian", dim, poly_size, gen, bits)
+
+    @classmethod
+    def generate_uniform(cls, dim: int, poly_size: int,
+                         gen: SecretRandomGenerator, bits: int = 32):
+        return cls._generate("uniform", dim, poly_size, gen, bits)
 
     def into_lwe_key(self):
         """The flattened ("big") LWE key of dimension k*N (secret/glwe.rs:332),
         which decrypts sample-extracted ciphertexts."""
         from .lwe import LweSecretKey
 
-        return LweSecretKey(self.key.reshape(-1).copy(), self.bits)
+        return LweSecretKey(self.key.reshape(-1).copy(), self.kind, self.bits)
+
+    # -- encryption ----------------------------------------------------------
+
+    def multisum(self, masks, device=None) -> torch.Tensor:
+        """sum_j masks[..., j, :] * s_j mod (X^N + 1, 2^bits) as a carrier
+        tensor on `device` (numpy or tensor masks [..., k, N])."""
+        return polynomial.negacyclic_multisum(
+            as_torus(masks, device, self.bits),
+            from_numpy(self.key, device, self.bits))
 
     def encrypt_from_randomness(self, masks: np.ndarray, noises: np.ndarray,
                                 msgs: np.ndarray, device=None) -> np.ndarray:
         """Ciphertexts from pre-drawn randomness: masks [..., k, N], noises
         and msgs [..., N] -> [..., k+1, N] with body = noise + sum_j a_j*s_j
-        + msg (secret/glwe.rs:488-516). The products run on `device` (the
-        CPU by default); the float64 sums are exact, so every device gives
-        the same bytes."""
-        products = polynomial.negacyclic_multisum(
-            from_numpy(masks, device), from_numpy(self.key, device))
-        bodies = noises + to_numpy(products) + msgs
+        + msg (secret/glwe.rs:488-516); the products run on `device`."""
+        bodies = noises + to_numpy(self.multisum(masks, device)) + msgs
         return np.concatenate([masks, bodies[..., None, :]], axis=-2)
+
+    def draw_randomness(self, count: int, std: float,
+                        gen: EncryptionRandomGenerator):
+        """The stream order of one ciphertext after another
+        (secret/glwe.rs:488-516): Gaussian noise for the body first (noise
+        stream), then k mask polynomials (mask stream). N is even, so the
+        batched pairs consume what the per-ciphertext loop does."""
+        k, n = self.dimension, self.polynomial_size
+        assert n % 2 == 0
+        noises = gen.fill_noise(count * n, std, self.bits).reshape(count, n)
+        masks = gen.fill_mask(count * k * n, self.bits).reshape(count, k, n)
+        return masks, noises
+
+    def encrypt(self, messages, std: float, gen: EncryptionRandomGenerator,
+                device=None) -> np.ndarray:
+        """Encrypt message polynomials [..., N] -> [..., k+1, N]."""
+        dt = UNSIGNED[self.bits]
+        k, n = self.dimension, self.polynomial_size
+        msgs = np.asarray(messages, dtype=dt)
+        lead = msgs.shape[:-1]
+        count = int(np.prod(lead, dtype=np.int64)) if lead else 1
+        masks, noises = self.draw_randomness(count, std, gen)
+        out = self.encrypt_from_randomness(masks, noises,
+                                           msgs.reshape(count, n), device)
+        return out.reshape(lead + (k + 1, n))
+
+    def encrypt_zero(self, count_shape, std: float,
+                     gen: EncryptionRandomGenerator, device=None) -> np.ndarray:
+        """Fresh encryptions of zero (secret/glwe.rs:547)."""
+        zeros = np.zeros(tuple(count_shape) + (self.polynomial_size,),
+                         dtype=UNSIGNED[self.bits])
+        return self.encrypt(zeros, std, gen, device)
+
+    def decrypt(self, ct, device=None) -> np.ndarray:
+        """body - sum_j a_j*s_j (secret/glwe.rs:694), unsigned."""
+        ct = to_numpy(ct) if isinstance(ct, torch.Tensor) else \
+            np.asarray(ct, dtype=UNSIGNED[self.bits])
+        return (ct[..., -1, :] - to_numpy(self.multisum(ct[..., :-1, :], device))
+                ).astype(UNSIGNED[self.bits])
+
+
+def trivial_encrypt(poly, glwe_dimension: int, bits: int = 32,
+                    device=None) -> torch.Tensor:
+    """Trivial GLWE: zero masks, body = the plaintext polynomial
+    (glwe_ciphertext_trivial_encryption): [..., N] -> [..., k+1, N] in the
+    torus carrier."""
+    poly = as_torus(poly, device, bits)
+    out = torch.zeros(poly.shape[:-1] + (glwe_dimension + 1, poly.shape[-1]),
+                      dtype=carrier(bits), device=poly.device)
+    out[..., -1, :] = poly
+    return out
+
+
+def trivial_decrypt(ct: torch.Tensor) -> torch.Tensor:
+    """The body polynomial of a trivial GLWE."""
+    return ct[..., -1, :]

@@ -6,9 +6,9 @@ Secret keys live on the host as np.uint64. The bootstrapping and
 keyswitching keys keep their coefficient-domain arrays on the host and
 derive their evaluation forms (toeplitz or Nussbaumer rings, NTT spectra,
 int8 limb planes) on `device` at first use: the GPU unless the caller asks for the
-CPU. Key generation draws from numpy Generators, not from the JAX package's
-AES-CTR streams (its products run on `device`); keys saved by concrete_tpu
-load here unchanged (`load`).
+CPU. Key generation draws from the AES-CTR streams, so equal seeds give
+concrete_tpu's keys byte for byte (the BSK's products run on `device`);
+keys saved by concrete_tpu load here unchanged (`load`).
 
 Example (a tiny PBS + keyswitch on the CPU):
     >>> import numpy as np
@@ -22,6 +22,8 @@ Example (a tiny PBS + keyswitch on the CPU):
     ...                  noise_seed=6, device="cpu")
     >>> ksk.run_keyswitch(np.zeros((3, 257), np.uint64)).shape
     torch.Size([3, 17])
+    >>> sk.inner.key[:8].tolist()
+    [0, 0, 0, 1, 1, 1, 0, 1]
 """
 
 from __future__ import annotations
@@ -40,10 +42,11 @@ from ..core import lwe as lwe_ops
 from ..core.ggsw import StandardBootstrapKey, bsk_to_ntt
 from ..core.glwe import GlweSecretKey
 from ..core.lwe import LweKeyswitchKey, LweSecretKey
+from ..csprng import EncryptionRandomGenerator, SecretRandomGenerator
 from ..dispersion import Variance
 from ..ops._cuda import resolve_device
 from ..params import log2_exact
-from ..torus import EncryptionRandom, as_torus, from_numpy
+from ..torus import as_torus, from_numpy
 from .encoder import BITS, DTYPE
 from .params_presets import LWEParams, RLWEParams
 
@@ -57,8 +60,8 @@ class LWESecretKey:
 
     @classmethod
     def new(cls, params: LWEParams, *, secret_seed: int | None = None):
-        rng = np.random.default_rng(secret_seed)
-        return cls(LweSecretKey.generate_binary(params.dimension, rng, BITS),
+        gen = SecretRandomGenerator(secret_seed)
+        return cls(LweSecretKey.generate_binary(params.dimension, gen, BITS),
                    params.std_dev)
 
     @property
@@ -76,7 +79,7 @@ class LWESecretKey:
     @classmethod
     def load(cls, path: str) -> "LWESecretKey":
         with np.load(path, allow_pickle=False) as d:
-            return cls(LweSecretKey(d["key"].astype(DTYPE), BITS),
+            return cls(LweSecretKey(d["key"].astype(DTYPE), "binary", BITS),
                        float(d["std_dev"]))
 
 
@@ -89,9 +92,9 @@ class RLWESecretKey:
 
     @classmethod
     def new(cls, params: RLWEParams, *, secret_seed: int | None = None):
-        rng = np.random.default_rng(secret_seed)
+        gen = SecretRandomGenerator(secret_seed)
         return cls(GlweSecretKey.generate_binary(
-            params.dimension, params.polynomial_size, rng, BITS), params.std_dev)
+            params.dimension, params.polynomial_size, gen, BITS), params.std_dev)
 
     @property
     def dimension(self) -> int:
@@ -116,7 +119,7 @@ class RLWESecretKey:
     @classmethod
     def load(cls, path: str) -> "RLWESecretKey":
         with np.load(path, allow_pickle=False) as d:
-            return cls(GlweSecretKey(d["key"].astype(DTYPE), BITS),
+            return cls(GlweSecretKey(d["key"].astype(DTYPE), "binary", BITS),
                        float(d["std_dev"]))
 
 
@@ -240,14 +243,15 @@ class LWEBSK:
             noise_seed: int | None = None, device=None,
             backend: str = "auto") -> "LWEBSK":
         """GGSW-encrypt `sk_input`'s bits under `sk_output`, with masks and
-        noise from numpy Generators seeded with `mask_seed`/`noise_seed`;
-        the mask-times-key products run on `device`."""
+        noise from the AES-CTR streams seeded with `mask_seed`/`noise_seed`
+        (concrete_tpu's bytes); the mask-times-key products run on
+        `device`."""
         cfg = cls._config(sk_input.dimension, sk_output.dimension,
                           sk_output.polynomial_size, base_log, level)
         device = resolve_device(device)
         std_bsk = StandardBootstrapKey.generate(
             sk_input.inner, sk_output.inner, base_log, level,
-            sk_output.std_dev, EncryptionRandom.new(mask_seed, noise_seed),
+            sk_output.std_dev, EncryptionRandomGenerator(mask_seed, noise_seed),
             device=device)
         return cls(cfg=cfg, variance=sk_output.variance,
                    coefficient_bsk=std_bsk.data, device=device, backend=backend)
@@ -302,9 +306,12 @@ class LWEBSK:
 
 @dataclasses.dataclass
 class LWEKSK:
-    """Keyswitching key (lwe_ksk.rs:14). It runs as one int8 product
-    against its limb planes (lwe.ksk_to_limbs), built on `device` at first
-    use."""
+    """Keyswitching key (lwe_ksk.rs:14). It runs against its int8 limb
+    planes (lwe.ksk_to_limbs), built on `device` at first use: one int8
+    product where base_log <= 7 and the int32 bound hold (the limb path,
+    which concrete_tpu takes on the TPU), the general keyswitch's product
+    elsewhere (lwe.keyswitch_prepared), where concrete_tpu runs its u64
+    keyswitch; the same bits either way."""
 
     inner: LweKeyswitchKey
     variance: float
@@ -318,10 +325,6 @@ class LWEKSK:
     def limbs(self) -> torch.Tensor:
         """int8 limb planes [n_in*l, 8*(n_out+1)] on the device."""
         if self._limbs is None:
-            if not (self.base_log <= 7 and
-                    self.inner.data.shape[0] * self.level * 8192 < 2 ** 31):
-                raise NotImplementedError(
-                    "only the int8 limb keyswitch is ported (base_log <= 7)")
             self._limbs = torch.from_numpy(
                 lwe_ops.ksk_to_limbs(self.inner.data)).to(self.device)
         return self._limbs
@@ -329,7 +332,7 @@ class LWEKSK:
     def run_keyswitch(self, cts) -> torch.Tensor:
         """Keyswitch a [..., n_in+1] batch (u64 numpy or int64 tensor) ->
         [..., n_out+1] int64 on the device."""
-        return lwe_ops.keyswitch_limbs(
+        return lwe_ops.keyswitch_prepared(
             self.limbs, as_torus(cts, self.device, BITS),
             base_log=self.base_log, level_count=self.level)
 
@@ -339,7 +342,7 @@ class LWEKSK:
             noise_seed: int | None = None, device=None) -> "LWEKSK":
         ksk = LweKeyswitchKey.generate(
             sk_before.inner, sk_after.inner, base_log, level,
-            sk_after.std_dev, EncryptionRandom.new(mask_seed, noise_seed))
+            sk_after.std_dev, EncryptionRandomGenerator(mask_seed, noise_seed))
         return cls(inner=ksk, variance=sk_after.variance, device=device)
 
     @property

@@ -26,8 +26,9 @@ import warnings
 import numpy as np
 
 from .. import npe
+from ..csprng import EncryptionRandomGenerator
 from ..dispersion import Variance
-from ..torus import EncryptionRandom, to_numpy
+from ..torus import to_numpy
 from . import errors
 from .encoder import BITS, DTYPE, Encoder
 from .keys import LWEBSK, LWEKSK, LWESecretKey
@@ -85,7 +86,7 @@ class LWE:
     ) -> "LWE":
         """Encode reals then encrypt (lwe/mod.rs encode_encrypt)."""
         pts = encoder.encode_core(messages)
-        gen = EncryptionRandom.new(mask_seed, noise_seed)
+        gen = EncryptionRandomGenerator(mask_seed, noise_seed)
         data = sk.inner.encrypt(pts, sk.std_dev, gen)
         out = cls(data=data, encoder=encoder.copy(), variance=sk.variance)
         out.encoder.update_precision_from_variance(out.variance)
@@ -107,7 +108,7 @@ class LWE:
         if sk.std_dev < 2.0 ** (-(BITS) + 2):
             raise errors.NoNoiseInCiphertext(sk.variance)
         pts = np.asarray(plaintexts, dtype=DTYPE)
-        gen = EncryptionRandom.new(mask_seed, noise_seed)
+        gen = EncryptionRandomGenerator(mask_seed, noise_seed)
         data = sk.inner.encrypt(pts, sk.std_dev, gen)
         return cls(data=data, encoder=Encoder.zero(), variance=sk.variance)
 

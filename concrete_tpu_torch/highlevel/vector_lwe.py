@@ -23,8 +23,9 @@ import dataclasses
 import numpy as np
 
 from .. import npe
+from ..csprng import EncryptionRandomGenerator
 from ..dispersion import Variance
-from ..torus import EncryptionRandom, to_numpy
+from ..torus import to_numpy
 from . import errors
 from .encoder import BITS, DTYPE, Encoder
 from .keys import LWEBSK, LWEKSK, LWESecretKey
@@ -65,7 +66,7 @@ class VectorLWE:
         (vector_lwe/mod.rs encode_encrypt)."""
         msgs = np.asarray(messages, dtype=np.float64).ravel()
         pts = encoder.encode_core(msgs)
-        gen = EncryptionRandom.new(mask_seed, noise_seed)
+        gen = EncryptionRandomGenerator(mask_seed, noise_seed)
         data = sk.inner.encrypt(pts, sk.std_dev, gen)
         encs = [encoder.copy() for _ in msgs]
         for e in encs:
@@ -142,7 +143,7 @@ class VectorLWE:
         if sk.std_dev < 2.0 ** (-BITS + 2):
             raise errors.NoNoiseInCiphertext(sk.variance)
         pts = np.asarray(plaintexts, dtype=DTYPE).ravel()
-        gen = EncryptionRandom.new(mask_seed, noise_seed)
+        gen = EncryptionRandomGenerator(mask_seed, noise_seed)
         self.data = sk.inner.encrypt(pts, sk.std_dev, gen)
         self.variances = np.full(pts.size, sk.variance)
 

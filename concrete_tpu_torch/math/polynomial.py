@@ -50,31 +50,41 @@ def negacyclic_monomial_div(poly: torch.Tensor, degree) -> torch.Tensor:
 
 
 def negacyclic_multisum(torus_polys: torch.Tensor, key: torch.Tensor):
-    """sum_j torus_polys[..., j, :] * key[j, :] mod (X^N + 1, 2^bits), for a
-    binary or ternary key [k, N] (entries in {-1, 0, 1}) and u32 (int32) or
-    u64 (int64) torus polynomials.
+    """sum_j torus_polys[..., j, :] * key[j, :] mod (X^N + 1, 2^bits) for
+    u32 (int32) or u64 (int64) torus polynomials and a key [k, N] in the
+    same carrier (or any integer tensor), exactly, for every key kind.
 
-    Key generation's mask-times-key product. It is exact: each unsigned
-    32-bit word of the torus values (one for u32, two for u64) is multiplied
-    in float64, where every partial sum stays below k*N*2^32 <= 2^53 for
-    k*N <= 2^21, and the word products are recombined mod 2^bits in int64."""
+    Key generation's mask-times-key product, in float64 products whose
+    every partial sum stays below 2^53 for k*N <= 2^21, recombined mod
+    2^bits in int64. A key with entries in {-1, 0, 1} (binary and ternary
+    keys, concrete_tpu's small_max = 1) multiplies each unsigned 32-bit
+    word of the torus values (one for u32, two for u64); any other key is
+    split into 16-bit limbs, as the torus values are, and the limb products
+    that reach below 2^bits are summed (3 for u32, 10 for u64)."""
     k, n = key.shape
     if k * n > (1 << 21):
         raise ValueError(f"k*N={k * n}: float64 sums would not stay exact")
-    if int(key.to(torch.int64).abs().max()) > 1:
-        raise ValueError("key entries must lie in {-1, 0, 1}")
     bits = bits_of(torus_polys)
     dev = torus_polys.device
-    # M[j, i, :] = X^i * key_j, so (a_j * key_j) = sum_i a_j[i] M[j, i, :]
+    key = key.to(dev)
+    small = int(key.to(torch.int64).abs().max()) <= 1
     rows = torch.arange(n, device=dev)
-    mats = negacyclic_monomial_mul(
-        key.to(device=dev, dtype=torch.int32)[:, None, :], rows[None, :])
-    mats = mats.reshape(k * n, n).to(torch.float64)
     wide = torus_polys.to(torch.int64).reshape(-1, k * n)
     out = torch.zeros((wide.shape[0], n), dtype=torch.int64, device=dev)
-    for w in range(bits // 32):
-        word = (wide >> (32 * w)) & 0xFFFFFFFF
-        out += (word.to(torch.float64) @ mats).to(torch.int64) << (32 * w)
+    if small:
+        key_limbs, width = [key.to(torch.int64)], 32
+    else:
+        key_limbs, width = [(key.to(torch.int64) >> s) & 0xFFFF
+                            for s in range(0, bits, 16)], 16
+    mask = (1 << width) - 1
+    for l, limb in enumerate(key_limbs):
+        # M[j, i, :] = X^i * limb_j, so (a_j * limb_j) = sum_i a_j[i] M[j, i, :]
+        mats = negacyclic_monomial_mul(limb[:, None, :], rows[None, :])
+        mats = mats.reshape(k * n, n).to(torch.float64)
+        for w in range(bits // width - l * (width == 16)):
+            word = (wide >> (width * w)) & mask
+            shift = width * w + (16 * l if width == 16 else 0)
+            out += (word.to(torch.float64) @ mats).to(torch.int64) << shift
     lead = torus_polys.shape[:-2]
     if bits == 32:
         out = out & 0xFFFFFFFF

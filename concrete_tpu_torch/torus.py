@@ -27,8 +27,6 @@ Example:
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
@@ -122,30 +120,3 @@ def into_torus_f64(t, bits: int) -> np.ndarray:
     """Closest float of an unsigned torus element (torus/mod.rs:50-55)."""
     return np.asarray(t).astype(np.float64) * 2.0 ** -bits
 
-
-@dataclasses.dataclass
-class EncryptionRandom:
-    """Mask and noise streams for encryption and key generation: two
-    ``numpy.random.Generator`` objects seeded from ``mask_seed`` and
-    ``noise_seed``. Masks are uniform u32 or u64; noise is Gaussian on the
-    real torus, rounded with :func:`from_torus_f64`.
-
-    These are not the AES-CTR streams of ``concrete_tpu.csprng``, so keys and
-    ciphertexts made here differ from the JAX package's for the same seeds;
-    keys made by the JAX package can be loaded (``ClientKey.load``,
-    ``ServerKey.load``, the ``highlevel`` keys' ``load``)."""
-
-    mask: np.random.Generator
-    noise: np.random.Generator
-
-    @classmethod
-    def new(cls, mask_seed: int | None = None, noise_seed: int | None = None):
-        return cls(np.random.default_rng(mask_seed),
-                   np.random.default_rng(noise_seed))
-
-    def fill_mask(self, shape, bits: int = 32) -> np.ndarray:
-        return self.mask.integers(0, 1 << bits, size=shape,
-                                  dtype=UNSIGNED[bits])
-
-    def fill_noise(self, shape, std: float, bits: int = 32) -> np.ndarray:
-        return from_torus_f64(self.noise.normal(0.0, std, size=shape), bits)

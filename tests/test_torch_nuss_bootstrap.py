@@ -227,14 +227,16 @@ def test_keygen_products_on_a_device_give_the_same_bytes():
     from concrete_tpu_torch.core.ggsw import StandardBootstrapKey
     from concrete_tpu_torch.core.glwe import GlweSecretKey
     from concrete_tpu_torch.core.lwe import LweSecretKey
+    from concrete_tpu_torch.csprng import (EncryptionRandomGenerator,
+                                           SecretRandomGenerator)
 
-    rng = np.random.default_rng(9)
+    rng = SecretRandomGenerator(9)
     lsk = LweSecretKey.generate_binary(3, rng, 64)
     gsk = GlweSecretKey.generate_binary(1, 64, rng, 64)
     a = StandardBootstrapKey.generate(lsk, gsk, 7, 2, 2.0 ** -50,
-                                      torus.EncryptionRandom.new(1, 2))
+                                      EncryptionRandomGenerator(1, 2))
     b = StandardBootstrapKey.generate(lsk, gsk, 7, 2, 2.0 ** -50,
-                                      torus.EncryptionRandom.new(1, 2),
+                                      EncryptionRandomGenerator(1, 2),
                                       device=torch.device("cpu"))
     np.testing.assert_array_equal(a.data, b.data)
 

@@ -97,9 +97,15 @@ def test_from_and_into_torus_f64_match_jax():
 
 
 def test_encryption_random_is_u64():
-    rand = torus.EncryptionRandom.new(4, 5)
-    assert rand.fill_mask((3, 4), 64).dtype == np.uint64
-    assert rand.fill_noise(7, 2.0 ** -30, 64).dtype == np.uint64
+    """u64 masks and noise from the port's streams, equal to concrete_tpu's."""
+    from concrete_tpu.csprng import EncryptionRandomGenerator as GenJax
+    from concrete_tpu_torch.csprng import EncryptionRandomGenerator
+
+    gen, gen_j = EncryptionRandomGenerator(4, 5), GenJax(4, 5)
+    mask, noise = gen.fill_mask(12, 64), gen.fill_noise(7, 2.0 ** -30, 64)
+    assert mask.dtype == noise.dtype == np.uint64
+    np.testing.assert_array_equal(mask, gen_j.fill_mask(12, 64))
+    np.testing.assert_array_equal(noise, gen_j.fill_noise(7, 2.0 ** -30, 64))
 
 
 # -- decomposition ---------------------------------------------------------------
@@ -395,11 +401,13 @@ def test_u64_keys_decrypt_their_own_ciphertexts():
     """Port keygen on the u64 torus: an LWE and a keyswitch round trip, and
     a GLWE key's big LWE key decrypting a sample-extracted trivial GLWE."""
     from concrete_tpu_torch.core.glwe import GlweSecretKey
+    from concrete_tpu_torch.csprng import (EncryptionRandomGenerator,
+                                           SecretRandomGenerator)
 
-    rng = np.random.default_rng(5)
+    rng = SecretRandomGenerator(5)
     k_in = lwe_t.LweSecretKey.generate_binary(64, rng, 64)
     k_out = lwe_t.LweSecretKey.generate_binary(24, rng, 64)
-    rand = torus.EncryptionRandom.new(6, 7)
+    rand = EncryptionRandomGenerator(6, 7)
     msgs = (np.arange(8, dtype=np.uint64) << np.uint64(60))
     ct = k_in.encrypt(msgs, 2.0 ** -50, rand)
     assert ct.dtype == np.uint64
@@ -411,7 +419,7 @@ def test_u64_keys_decrypt_their_own_ciphertexts():
     err = (k_out.decrypt(torus.to_numpy(out)) - msgs).astype(np.int64)
     assert np.abs(err).max() < 1 << 40
     gsk = GlweSecretKey.generate_binary(2, 64, rng, 64)
-    masks = rand.fill_mask((3, 2, 64), 64)
+    masks = rand.fill_mask(3 * 2 * 64, 64).reshape(3, 2, 64)
     body = np.zeros((3, 64), np.uint64)
     glwe = gsk.encrypt_from_randomness(masks, body, body + msgs[:3, None])
     lwe = torus.to_numpy(bs_t.sample_extract(_t(glwe)))
