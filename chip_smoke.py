@@ -80,7 +80,32 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           tools/phase_f_reference.py), that keyswitch equal to its CPU
           recomputation; the median of 3 adds per backend (adds/s and
           gates/s) and one profiled add. K1, K2, K3 and K9 must launch.
+  G       the conformance harness, VectorRLWE and the design model: the
+          CUDA probe (diagnose.main(): versions, device init, the kernels
+          built and one K1 launch held to its plain version) returns 0; the
+          fixture grid (fixtures.run_all(repetitions=1, sample_size=100),
+          the 63 reports concrete_tpu's gives) on the card, every report
+          passing; full-width noise entries through the fixtures' run_one
+          (noise_entries: PbsFixture at TPU128, DEFAULT and TFHE_LIB on ntt
+          and mxu, TFHE_LIB on nuss, U64PbsFixture at the int4 shape on mxu
+          and at N=8192 on nuss, the grid's N=8192 entry at 10 x 64, a u32
+          N=16384 nuss entry; 2 repetitions of 2048 samples unless stated),
+          each within assert_noise_bounded (slack 0.5 bit) with its
+          measured std beside the NPE's; VectorRLWE at full width (8 x 1024
+          packed 4-bit values under an RLWE128_1024_1 key: add_with_padding,
+          mul_constant_static_encoder, every value decoded right, the
+          ciphertexts' and the extracted LWEs' sha256 equal to
+          concrete_tpu's, DIGESTS_G; every coefficient extracted,
+          keyswitched to LWE128_630 and checked against the noise model as
+          in phase C, then bootstrapped through the int4 LUT on mxu, every
+          row equal to the LUT entry its modulus-switched phase selects),
+          each stage's device and host time; design.search() on the card's
+          cost model and, per gate preset, the modelled ntt gates/s within
+          2x of phase E's measured AND with report_pbs_efficiency. K1, K2,
+          K4-K7 and K9 must launch.
 
+The bounds and timers (bound_ms, time_ms, median_s, profile_call, the
+instruction counts of K4 and K9) come from concrete_tpu_torch.profiling.
 Every phase logs its kernels' launches per shape key (launches_by_shape);
 after the phases, each phase-A row of K4-K7 is logged beside the
 launches of its shape key on the main paths (A_launches).
@@ -96,14 +121,14 @@ import dataclasses
 import hashlib
 import json
 import math
-import statistics
 import subprocess
 import time
 
 import numpy as np
 import torch
 
-from concrete_tpu_torch import boolean, highlevel as hl, native, torus
+from concrete_tpu_torch import boolean, design, diagnose, fixtures, highlevel as hl
+from concrete_tpu_torch import native, torus
 from concrete_tpu_torch.boolean import circuits
 from concrete_tpu_torch.core import bootstrap as bs
 from concrete_tpu_torch.core import bootstrap_mxu as bsx
@@ -116,6 +141,19 @@ from concrete_tpu_torch.csprng import EncryptionRandomGenerator, aes
 from concrete_tpu_torch.csprng.generator import AesCtrGenerator
 from concrete_tpu_torch.highlevel.lwe import _accumulator, generate_functional_lut
 from concrete_tpu_torch.ops import _cuda
+from concrete_tpu_torch.profiling import (
+    INT8_TENSOR_OPS_PER_S,
+    bound_ms,
+    int_ops_s,
+    median_s,
+    mxu_gemm_ops,
+    ntt_cmux_work,
+    nuss_gemm_ops,
+    profile_call,
+    report_pbs_efficiency,
+    rotdig64_work,
+    time_ms,
+)
 from concrete_tpu_torch.params import (
     DEFAULT_PARAMETERS,
     TFHE_LIB_PARAMETERS,
@@ -147,55 +185,17 @@ REPLACES = {
 }
 # the kernels each main path must launch (phase B: u32 gates, C: u64 PBS,
 # D: the Nussbaumer backend on both tori, E: the ntt backend and the fused
-# toeplitz step, F: the 8-bit adder on ntt and on mxu)
+# toeplitz step, F: the 8-bit adder on ntt and on mxu, G: the fixture grid,
+# the full-width noise entries and VectorRLWE)
 PATH_KERNELS = {"B": ("build_tables", "rotdig", "rotdig_recombine"),
                 "C": ("build_tables", "rotdig64"),
                 "D": ("build_tables", "recombine_inv", "recombine_inv64",
                       "rotdig_fwd_nuss"),
                 "E": ("ntt_cmux", "fused_external_product_acc"),
-                "F": ("ntt_cmux", "build_tables", "rotdig", "rotdig_recombine")}
+                "F": ("ntt_cmux", "build_tables", "rotdig", "rotdig_recombine"),
+                "G": ("build_tables", "rotdig", "rotdig64", "recombine_inv",
+                      "recombine_inv64", "rotdig_fwd_nuss", "ntt_cmux")}
 CPU_ROWS = 32
-# the H100 SXM's published peaks: HBM bytes/s, and its float32 non-tensor
-# rate, taken for the kernels' integer ALU work
-HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
-# K8's rate: the 1,979 TOP/s dense int8 tensor rate (hopper-kernels guide)
-INT8_TENSOR_OPS_PER_S = 1979e12
-# K9's integer rates, per clock per SM (CUDA C++ Programming Guide,
-# arithmetic instruction throughput, compute capability 9.0, and Nsight
-# Compute's pipe definitions): 64 lanes of 32-bit multiplies (IMAD, the FMA
-# pipe), 64 lanes of compares, min/max, selects and logic (the ALU pipe),
-# integer adds on either pipe (IADD3 or IMAD.IADD), and one warp
-# instruction per sub-partition, 128 lanes, over both; x 132 SMs x the H100
-# SXM's 1,980 MHz boost clock
-SM_CLOCKS_PER_S = 132 * 1.98e9
-PIPE_LANES, ISSUE_LANES = 64, 128
-# the fewest instructions an operation needs, as (multiplies, adds,
-# ALU-only): a Montgomery product is IMAD.WIDE a*b, IMAD m = lo*n' and
-# IMAD.WIDE m*p + a*b (whose high word is the REDC sum), then t - p and an
-# unsigned min; a modular add or subtract is the sum, the sum minus p or
-# plus p, and an unsigned min; two MAC terms share one lazy REDC: a*b and
-# IMAD.WIDE c*d + a*b (their sum < 2p^2), the REDC's two multiplies and a
-# 64-bit add into the running sum, whose one reduction per output is a
-# Montgomery product's cost; the Garner step of one coefficient is a
-# modular subtract, a reduction of x1 mod p1 (add, min), a Montgomery
-# product, x1 + p0*x2 (one IMAD), the compare with ceil(M/2) (two), its
-# conditional subtract and the add into acc
-MONT, MODADD, MAC_PAIR, GARNER = (3, 1, 1), (0, 2, 1), (4, 2, 0), (4, 6, 5)
-# K4's fewest instructions a coefficient, as (multiplies, adds, ALU-only):
-# the gather (c - a and the shared address: two adds; the index mask, the
-# wrap bit and the negate's xor of both words: four ALU) and the rounded
-# difference (v ^ m) - m - x + half (four adds with carries); the prefix's
-# shift (one ALU, two when it is wider than 32 bits); a level on the 32-bit
-# state: res, st, the carry's bits and their shift (four ALU), res - 1 and
-# st + carry (two adds), the digit res - carry * 2^base_log (a multiply);
-# the last level needs no st (three ALU, an add, a multiply); a level on
-# the 64-bit state: st and st + carry on two words (five ALU, three adds, a
-# multiply); a balanced 7-bit sub-digit: (d + 64) >> 7 and d - 128 * that
-# (an add, a shift, a multiply); three byte permutes pack four digits
-# (0.75 ALU a coefficient, a level and sub-digit)
-GATHER64, LEVEL32, LAST32, LEVEL64 = (0, 6, 4), (1, 2, 4), (1, 1, 3), (1, 3, 5)
-SUBDIGIT, PACK = (1, 1, 1), (0, 0, 0.75)
 # phase C: examples/int4_lut.py at the JAX suite's batch
 INT4 = {"lwe": hl.LWE128_630, "rlwe": hl.RLWE128_1024_1, "pbs": (7, 3),
         "ks": (2, 8), "batch": 2048}
@@ -244,7 +244,21 @@ DIGESTS = {
     "ks key": "362733fd86195321",
     "ks out": "d20e812c4ae90f96"}
 
-
+# phase G: the conformance grid (concrete_tpu's run_all(repetitions=1) gives
+# 63 reports), full-width noise entries (fixtures' run_one, fixed seeds) and
+# VectorRLWE at the int4 keys' shapes (its own seeds). tools/phase_f_reference.py
+# computes DIGESTS_G with concrete_tpu from these seeds.
+GRID_REPORTS = 63
+NOISE_REPS, NOISE_SAMPLES = 2, 2048
+PHASE_G = {"lwe_seed": 71, "rlwe_seed": 72, "a_seeds": (73, 74),
+           "b_seeds": (75, 76), "ksk_seeds": (77, 78), "bsk_seeds": (79, 80),
+           "values_seed": 81, "ciphertexts": 8,
+           "constants": (1, 2, 1, 2, 2, 1, 2, 1)}
+DIGESTS_G = {
+    "vrlwe a": "4ada53e0b77250fd",
+    "vrlwe b": "cfb58da32d52944c",
+    "vrlwe add_mul": "35a54d6e2c6eb245",
+    "vrlwe extracted": "0660a1c97f6ab8db"}
 _COUNTED = (bsx, bsn, bsntt)
 # phase -> {kernel: {shape key: launches}} of its main path (read_launches),
 # and phase A's rows that name a shape key (kernel, label, key, ms, bound)
@@ -289,28 +303,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Device ms per call: `reps` calls captured once in a CUDA graph and the
-    graph replayed between two CUDA events, so the Python launch path
-    (wrapper checks, ctypes) is not counted, only the kernels."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def log_profile(label: str, fn, card, gemm_ops=None, phase="profile"):
+    """One call of `fn` under profiling.profile_call, logged with its host
+    time (wall less device time). Returns fn's result."""
+    box = {}
+    stats = profile_call(lambda: box.setdefault("out", fn()), gemm_ops)
+    log(phase=phase, cell=label, **stats,
+        host_ms=stats["wall_ms"] - stats["device_ms"], card=card)
+    return box["out"]
 
 
 def max_abs_err(got, want) -> int:
@@ -404,48 +404,6 @@ def kernel_cases(dev):
     cases += ntt_kernel_cases(dev, rng, u32, degrees)
     cases += fused_kernel_cases(dev, rng, u32)
     return cases
-
-
-def ntt_cmux_work(cfg, b: int) -> tuple[int, tuple[int, int, int]]:
-    """(Montgomery products, instructions as (multiplies, adds, ALU-only))
-    of one K9 step at batch b: per row, l*(k+1) forward NTTs per prime
-    (twist + N/2 log2 N butterflies, each a product, an add and a
-    subtract), the MAC of each against k+1 key spectra (terms in pairs,
-    one reduction per output), (k+1) inverse NTTs per prime (butterflies
-    + untwist) and the Garner recombination. The digit extraction and
-    rotation are not counted."""
-    n, ks1, lv, p = cfg.polynomial_size, cfg.glwe_size, cfg.pbs_level, 2
-    butterflies = n // 2 * (n.bit_length() - 1)
-    fwd, inv = b * ks1 * lv * p, b * ks1 * p
-    macs = fwd * ks1 * n
-    garner = b * ks1 * n
-    products = (fwd + inv) * (n + butterflies) + macs + garner
-    count = {MONT: (fwd + inv) * (n + butterflies) + inv * n,
-             MODADD: (fwd + inv) * 2 * butterflies,
-             MAC_PAIR: macs // 2, GARNER: garner}
-    return products, tuple(sum(c * op[i] for op, c in count.items())
-                           for i in range(3))
-
-
-def rotdig64_work(plan) -> tuple[float, float, float]:
-    """K4's fewest 32-bit instructions a coefficient, as (multiplies, adds,
-    ALU-only), at the plan's gadget: the levels that run on the 64-bit
-    state until the bits left fit 32, then on the 32-bit state (the
-    costs above). Times b * (k+1) * N coefficients for a launch."""
-    bl, lv, ns = plan.base_log, plan.level, plan.n_sub
-    prefix = bl * lv
-    wide = max(0, -(-(prefix - 32) // bl))
-    count = {GATHER64: 1, (0, 0, 2 if prefix > 32 else 1): 1,
-             LEVEL64: wide, LEVEL32: lv - 1 - wide, LAST32: 1,
-             SUBDIGIT: lv * (ns - 1), PACK: lv * ns}
-    return tuple(sum(c * op[i] for op, c in count.items()) for i in range(3))
-
-
-def int_ops_s(mul: int, add: int, alu: int) -> float:
-    """Seconds the card needs at least for these 32-bit integer
-    instructions: each pipe at its rate, both within the issue rate."""
-    return max(mul / PIPE_LANES, alu / PIPE_LANES,
-               (mul + add + alu) / ISSUE_LANES) / SM_CLOCKS_PER_S
 
 
 def ntt_kernel_cases(dev, rng, u32, degrees):
@@ -608,21 +566,6 @@ def _int4_config(base_log, level, drop=0) -> bs.ServerConfig:
         bits=64, mxu_limb_drop=drop)
 
 
-def bound_ms(inputs, outputs, op_s=None) -> tuple[float, str]:
-    """The least time the card could take: each input read once and each
-    output written once at the HBM rate, against the kernel's operations
-    at their peak rate (`op_s` seconds: K8's int8 MACs at the tensor rate,
-    K4's and K9's integer instructions at the integer pipes' rates), else
-    one ALU operation per output element (a lower bound on the work) at the
-    float32 rate."""
-    moved = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
-    by_bytes = moved / HBM_BYTES_PER_S
-    by_ops = (sum(t.numel() for t in outputs) / ALU_OPS_PER_S if op_s is None
-              else op_s)
-    return (max(by_bytes, by_ops) * 1e3,
-            "bytes" if by_bytes >= by_ops else "operations")
-
-
 def phase_a(dev, card):
     """Every kernel equal to its plain version; returns the headline row
     per kernel (its first case) for the kernels line."""
@@ -722,102 +665,20 @@ def phase_b(dev, card):
         for tier in TIERS[name]:
             _, (ca, cb, _) = encrypt_bools(cks, tier, 7)
             ca, cb = torus.from_numpy(ca, dev), torus.from_numpy(cb, dev)
-            times = []
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                sks.and_(ca, cb)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            med = statistics.median(times)
+            med = median_s(lambda: sks.and_(ca, cb))
             plan = bsx.MxuPlan.from_config(sks.cfg)
             log(phase="B", params=name, tier=tier, gate="and_",
                 ms_per_call=med * 1e3, gates_per_s=tier / med,
                 deferred=bsx.auto_defer(plan, tier), card=card)
             if tier == 2048:
-                profile_call(f"{name} mxu AND B={tier}",
-                             lambda: sks.and_(ca, cb), card,
-                             gemm_ops=mxu_gemm_ops(plan, tier))
+                log_profile(f"{name} mxu AND B={tier}",
+                            lambda: sks.and_(ca, cb), card,
+                            gemm_ops=mxu_gemm_ops(plan, tier))
         if name == "TFHE_LIB":
             fast_mode_request(cks, sks, card)
         del sks
         torch.cuda.empty_cache()
     return cpu_check
-
-
-# device kernels by name, as the profiler shows them (demangled): ours,
-# then the int8 GEMM that torch._int_mm runs
-_KERNEL_KINDS = (("ntt_cmux_kernel", "K9 ntt_cmux"),
-                 ("fused_cmux_kernel", "K8 fused_cmux"),
-                 ("build_tables", "K1 build_tables"),
-                 ("rotdig_recombine", "K3 rotdig_recombine"),
-                 ("rotdig64_kernel", "K4 rotdig64"),
-                 ("rotdig_kernel", "K2 rotdig"),
-                 ("recombine_inv_kernel<unsigned long, unsigned int",
-                  "K5 recombine_inv"),
-                 ("recombine_inv_kernel", "K6 recombine_inv64"),
-                 ("rotdig_fwd_nuss_kernel", "K7 rotdig_fwd_nuss"),
-                 ("gemm", "int8 GEMM"), ("cutlass", "int8 GEMM"))
-
-
-def mxu_gemm_ops(plan, b: int) -> int:
-    """int8 operations (2 a MAC) of the CMux products of one toeplitz blind
-    rotation at batch b: per step [b, R*N] x [R*N, (k+1)*limbs*N]."""
-    n = plan.polynomial_size
-    return (2 * plan.lwe_dimension * b * plan.row_blocks * n
-            * plan.glwe_size * plan.limbs_used * n)
-
-
-def nuss_gemm_ops(plan, b: int) -> int:
-    """The same for the Nussbaumer path: 2L products a step, each
-    [b, R'*M] x [R'*M, (k+1)*limbs*M]."""
-    m = plan.m
-    return (2 * plan.lwe_dimension * plan.two_l * b * plan.row_blocks * m
-            * plan.glwe_size * plan.limbs_used * m)
-
-
-def profile_call(label: str, fn, card, gemm_ops=None):
-    """One call of `fn` under torch.profiler: device time summed by kernel
-    kind, and the device idle share of the call's wall time (the profiler
-    adds host overhead, so the idle share is an upper bound). With
-    `gemm_ops`, the int8 operations of the call's CMux products, also the
-    int8 GEMM's rate in TOP/s (its device time includes a gate's keyswitch
-    product, under 1% of the CMux products' operations)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        kind = next((k for pat, k in _KERNEL_KINDS if pat in evt.key),
-                    "other (torch elementwise, copies)")
-        kinds[kind] = kinds.get(kind, 0.0) + evt.self_device_time_total / 1e3
-    busy = sum(kinds.values())
-    more = {}
-    if gemm_ops and kinds.get("int8 GEMM"):
-        more["gemm_tops"] = gemm_ops / (kinds["int8 GEMM"] * 1e-3) / 1e12
-    log(phase="profile", cell=label, wall_ms=wall_ms, device_ms=busy,
-        idle_share=1.0 - busy / wall_ms, **more,
-        device_ms_by_kind=dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
-        card=card)
-
-
-def median_s(fn, reps: int = 5) -> float:
-    """Median host seconds of `reps` synchronised calls."""
-    times = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return statistics.median(times)
 
 
 def fast_mode_request(cks, sks, card):
@@ -835,9 +696,9 @@ def fast_mode_request(cks, sks, card):
     log(phase="B", params="TFHE_LIB fast (levels=2)", tier=2048,
         gates=["and_", "xor"], truth_tables="ok", ms_per_call=med * 1e3,
         gates_per_s=2048 / med, card=card)
-    profile_call("TFHE_LIB fast (levels=2) AND B=2048",
-                 lambda: fast.and_(ca, cb), card,
-                 gemm_ops=mxu_gemm_ops(bsx.MxuPlan.from_config(fast.cfg), 2048))
+    log_profile("TFHE_LIB fast (levels=2) AND B=2048",
+                lambda: fast.and_(ca, cb), card,
+                gemm_ops=mxu_gemm_ops(bsx.MxuPlan.from_config(fast.cfg), 2048))
 
 
 def int4_table(x) -> float:
@@ -867,24 +728,41 @@ def check_multi_lut(label, multi, want3, big):
                                  "wrong")
 
 
-def check_keyswitched(label, ks, sk, enc, want, card):
+def check_keyswitched(label, ks, sk, enc, want, ksk, card, phase="C"):
     """The keyswitched rows against the noise model. With the example's
     keyswitch key (base_log 2, level 8, output noise 2^-14) the NPE puts
     the phase std near 2^-7.1 against a half message spacing of 2^-6, so a
-    few percent of rows decode wrong by design: the check is that the
-    measured phase-error std lies within [0.5, 1.5] of the std the API
-    tracks (VectorLWE.variances), and that the wrong rows are at most twice
-    the Gaussian tail that std predicts, plus 0.5%."""
-    err = (sk.inner.decrypt(ks.data) - enc.encode_core(want)).view(np.int64)
-    measured = float(np.std(err * 2.0 ** -64))
+    few percent of rows decode wrong by design.
+
+    The NPE's variance (the std the API tracks, VectorLWE.variances) is the
+    mean square error over keys. One fixed keyswitch key also shifts every
+    row it switches by the same amount: the balanced digits d of
+    [-B/2, B/2) have mean -1/2, so each row carries 1/2 of the sum of the
+    key's n_in * l noise values, a bias whose std over keys is
+    sqrt(n_in * l) * sigma_ksk / 2 (a sixth of the variance at base 4).
+    The rest of the NPE variance is the rows' own spread around it.
+    The check: the RMS phase error within [0.5, 1.5] of the tracked std;
+    the bias within 3 of its std over keys; and the wrong rows at most
+    twice the tail of a Gaussian of the measured bias and the NPE's
+    per-row std sqrt(tracked^2 - bias_std^2), plus 0.5%."""
+    err = (sk.inner.decrypt(ks.data) - enc.encode_core(want)).view(
+        np.int64) * 2.0 ** -64
+    bias, spread = float(err.mean()), float(err.std())
+    rms = math.sqrt(float(np.mean(err ** 2)))
     tracked = math.sqrt(float(ks.variances[0]))
+    n_in, levels = ksk.inner.data.shape[:2]
+    bias_std = 0.5 * math.sqrt(n_in * levels * ksk.variance)
+    row_std = math.sqrt(tracked ** 2 - bias_std ** 2)
     half = 2.0 ** -(enc.nb_bit_precision + enc.nb_bit_padding + 1)
-    p_row = math.erfc(half / tracked / math.sqrt(2.0))
+    p_row = 0.5 * sum(math.erfc((half + sign * bias) / row_std / math.sqrt(2.0))
+                      for sign in (-1, 1))
     wrong = int(np.sum(np.round(ks.decrypt_decode(sk)) != want))
-    log(phase="C", pbs=label, stage="keyswitch", rows=len(want),
-        phase_std=measured, tracked_std=tracked, std_ratio=measured / tracked,
+    log(phase=phase, pbs=label, stage="keyswitch", rows=len(want),
+        phase_rms=rms, tracked_std=tracked, rms_ratio=rms / tracked,
+        phase_bias=bias, bias_std=bias_std, phase_spread=spread,
+        row_std=row_std,
         wrong_rows=wrong, expected_wrong_rows=p_row * len(want), card=card)
-    if not (0.5 <= measured / tracked <= 1.5
+    if not (0.5 <= rms / tracked <= 1.5 and abs(bias) <= 3 * bias_std
             and wrong <= (2 * p_row + 0.005) * len(want)):
         raise AssertionError(f"{label}: keyswitched rows disagree with the "
                              "noise model")
@@ -936,7 +814,7 @@ def phase_c(dev, card):
         if wrong:
             raise AssertionError(f"int4 LUT ({label}): {wrong} of {b} PBS "
                                  "rows decode wrong")
-        check_keyswitched(label, ks, sk, enc, want, card)
+        check_keyswitched(label, ks, sk, enc, want, ksk, card)
     check_multi_lut("int4", multi, want3, big)
     log(phase="C", multi_lut_functions=len(MULTI_FNS), rows=b, decoded="ok")
 
@@ -948,15 +826,15 @@ def phase_c(dev, card):
         med = median_s(lambda key=key: key.run_bootstrap(acc, cts))
         log(phase="C", pbs=label, batch=b, ms_per_call=med * 1e3,
             pbs_per_s=b / med, card=card)
-        profile_call(f"int4 PBS {label} B={b}",
-                     lambda key=key: key.run_bootstrap(acc, cts), card,
-                     gemm_ops=mxu_gemm_ops(bsx.MxuPlan.from_config(key.cfg), b))
+        log_profile(f"int4 PBS {label} B={b}",
+                    lambda key=key: key.run_bootstrap(acc, cts), card,
+                    gemm_ops=mxu_gemm_ops(bsx.MxuPlan.from_config(key.cfg), b))
     big_ct = bsk.run_bootstrap(acc, cts)
     med = median_s(lambda: ksk.run_keyswitch(big_ct))
     log(phase="C", keyswitch=f"{big.dimension}->{sk.dimension}", batch=b,
         ms_per_call=med * 1e3, card=card)
-    profile_call(f"int4 keyswitch B={b}", lambda: ksk.run_keyswitch(big_ct),
-                 card)
+    log_profile(f"int4 keyswitch B={b}", lambda: ksk.run_keyswitch(big_ct),
+                card)
 
     t0 = time.perf_counter()
     cfg = dataclasses.replace(bsk.cfg, lwe_dimension=CPU_STEPS)
@@ -1008,8 +886,8 @@ def nuss_gates(dev, card):
         n_sub=plan.n_sub, key_prep_s=prep_s, rows=rows, gates=["and_", "xor"],
         truth_tables="ok", equal_to_mxu=True, ms_per_call=med * 1e3,
         gates_per_s=rows / med, card=card)
-    profile_call(f"TFHE_LIB nuss AND B={rows}", lambda: nuss.and_(ca, cb), card,
-                 gemm_ops=nuss_gemm_ops(plan, rows))
+    log_profile(f"TFHE_LIB nuss AND B={rows}", lambda: nuss.and_(ca, cb), card,
+                gemm_ops=nuss_gemm_ops(plan, rows))
 
 
 def nuss_int4(dev, card):
@@ -1062,8 +940,8 @@ def nuss_int4(dev, card):
     med = median_s(lambda: bsk.run_bootstrap(acc, cts), reps=3)
     log(phase="D", cell="int4 N=8192", batch=b, ms_per_call=med * 1e3,
         pbs_per_s=b / med, card=card)
-    profile_call(f"int4 N=8192 PBS B={b}", lambda: bsk.run_bootstrap(acc, cts),
-                 card, gemm_ops=nuss_gemm_ops(plan, b))
+    log_profile(f"int4 N=8192 PBS B={b}", lambda: bsk.run_bootstrap(acc, cts),
+                card, gemm_ops=nuss_gemm_ops(plan, b))
 
 
 def nuss_engine(dev, card):
@@ -1102,7 +980,7 @@ def nuss_engine(dev, card):
                 backend="nuss", L=plan.l, M=plan.m, limbs=plan.limbs_used,
                 key_prep_s=prep_s, batch=b, ms_per_call=med * 1e3,
                 pbs_per_s=b / med, card=card)
-            profile_call(f"{label} PBS B={b}", run, card, gemm_ops=nuss_gemm_ops(plan, b))
+            log_profile(f"{label} PBS B={b}", run, card, gemm_ops=nuss_gemm_ops(plan, b))
             if (n, bits) == (NUSS_ENGINE["sizes"][0], 32):
                 engine_ntt(cfg, bsk, lut, cts, out, med, card)
             if n == NUSS_ENGINE["sizes"][0] and bits == 32:
@@ -1130,8 +1008,8 @@ def engine_ntt(cfg, bsk, lut, cts, nuss_out, nuss_s, card):
         k9=bsntt.kernel_applies(cfg), key_prep_s=prep_s, batch=cts.shape[0],
         ms_per_call=med * 1e3, pbs_per_s=cts.shape[0] / med,
         nuss_ms_per_call=nuss_s * 1e3, equal_to_nuss=True, card=card)
-    profile_call(f"engine u32 N={cfg.polynomial_size} ntt PBS B={cts.shape[0]}",
-                 run, card)
+    log_profile(f"engine u32 N={cfg.polynomial_size} ntt PBS B={cts.shape[0]}",
+                run, card)
 
 
 def nuss_cpu_check(cfg, bsk, rings, lut, cts):
@@ -1172,7 +1050,8 @@ def ntt_gate_server(name, params, dev, card):
     """E, per preset: the ntt twin of the phase-B key (same seeds) serving
     AND/XOR/NAND/MUX requests, AND equal to the mxu backend; the AND median
     beside the mxu one; K8 through the fused gate pipeline. Returns the
-    TPU128 CPU cross-check inputs (else None)."""
+    TPU128 CPU cross-check inputs (else None) and the ntt AND's median
+    seconds at B=2048."""
     cks, sks = boolean.gen_keys(params, secret_seed=11, mask_seed=12,
                                 noise_seed=13, device=dev)
     auto = sks.resolved_backend()
@@ -1228,8 +1107,8 @@ def ntt_gate_server(name, params, dev, card):
         fused_equal_to_unfused=True, fused_ms_per_call=fused_s * 1e3,
         unfused_ms_per_call=unfused_s * 1e3, card=card)
     if name == "TPU128":
-        profile_call("TPU128 ntt AND B=2048", lambda: ntt.and_(ca, cb), card)
-        profile_call("TPU128 fused AND B=2048", lambda: gate_mxu(True), card)
+        log_profile("TPU128 ntt AND B=2048", lambda: ntt.and_(ca, cb), card)
+        log_profile("TPU128 fused AND B=2048", lambda: gate_mxu(True), card)
     if name == "TFHE_LIB":
         fast = ntt.with_fast_mode()
         (a, b, _), (ca2, cb2, _) = encrypt_bools(cks, 2048, 3000)
@@ -1240,7 +1119,7 @@ def ntt_gate_server(name, params, dev, card):
         log(phase="E", params="TFHE_LIB fast (levels=2) ntt",
             primes=list(fast.cfg.primes), tier=2048, truth_tables="ok",
             ms_per_call=med * 1e3, gates_per_s=2048 / med, card=card)
-    return cpu_check
+    return cpu_check, ntt_s
 
 
 def ntt_int4(dev, card):
@@ -1288,11 +1167,13 @@ def ntt_int4(dev, card):
 
 def phase_e(dev, card):
     """The ntt backend and the fused step; returns the kernel launches of
-    the main path (the CPU cross-check runs after the count is read)."""
+    the main path (the CPU cross-check runs after the count is read) and
+    the ntt AND's median seconds at B=2048 per preset."""
     reset_launch_counts()
-    cpu_check = None
+    cpu_check, ntt_and_s = None, {}
     for name, params in PRESETS.items():
-        cpu_check = ntt_gate_server(name, params, dev, card) or cpu_check
+        check, ntt_and_s[name] = ntt_gate_server(name, params, dev, card)
+        cpu_check = check or cpu_check
         torch.cuda.empty_cache()
     ntt_int4(dev, card)
     torch.cuda.synchronize()
@@ -1304,7 +1185,7 @@ def phase_e(dev, card):
         raise AssertionError("CPU recomputation of the ntt AND differs")
     log(phase="cpu_check", params="TPU128 ntt", gate="and_", rows=NTT_CPU_ROWS,
         bit_identical=True, seconds=time.perf_counter() - t0)
-    return launches
+    return launches, ntt_and_s
 
 
 def digest(arr) -> str:
@@ -1439,8 +1320,8 @@ def phase_f(dev, card):
         log(phase="F", backend=key.resolved_backend(), rows=f["rows"],
             ms_per_add=med * 1e3, adds_per_s=f["rows"] / med,
             gates_per_s=ADDER_GATES * f["rows"] / med, card=card)
-    profile_call(f"DEFAULT ntt 8-bit add B={f['rows']}",
-                 lambda: circuits.ripple_carry_adder(sks, a_dev, b_dev), card)
+    log_profile(f"DEFAULT ntt 8-bit add B={f['rows']}",
+                lambda: circuits.ripple_carry_adder(sks, a_dev, b_dev), card)
 
     big = cks.glwe_secret_key.into_lwe_key()
     bl, lv = f["ks"]
@@ -1467,6 +1348,232 @@ def phase_f(dev, card):
     return launches
 
 
+def noise_entries() -> list:
+    """(label, fixture class, entry, repetitions) of phase G's full-width
+    noise entries: PbsFixture at the three gate presets' full n, k, N,
+    base_log and level on ntt and mxu, TFHE_LIB also on nuss; U64PbsFixture
+    at the int4 shape on mxu and at N=8192 on nuss; the grid's own N=8192
+    PbsFixture entry at the class's REPETITIONS x SAMPLE_SIZE; a u32
+    N=16384 nuss entry."""
+    out = []
+    for name, p in PRESETS.items():
+        entry = {"n": p.lwe_dimension, "k": p.glwe_dimension,
+                 "N": p.polynomial_size, "base_log": p.pbs_base_log,
+                 "levels": p.pbs_level, "samples": NOISE_SAMPLES}
+        for backend in ("ntt", "mxu") + (("nuss",) if name == "TFHE_LIB" else ()):
+            out.append((f"{name} {backend}", fixtures.PbsFixture,
+                        dict(entry, backend=backend), NOISE_REPS))
+    (bl, lv), n = INT4["pbs"], INT4["lwe"].dimension
+    int4 = {"n": n, "k": 1, "N": INT4["rlwe"].polynomial_size, "base_log": bl,
+            "levels": lv}
+    out.append(("int4 u64 mxu", fixtures.U64PbsFixture,
+                dict(int4, backend="mxu", samples=NOISE_SAMPLES), NOISE_REPS))
+    out.append(("int4 u64 N=8192 nuss", fixtures.U64PbsFixture,
+                dict(int4, N=8192, backend="nuss", samples=256), NOISE_REPS))
+    fx = fixtures.PbsFixture
+    grid = next(e for e in fx.PARAMETERS if e["N"] == 8192)
+    entry = {k: v for k, v in grid.items() if k not in ("reps", "samples")}
+    out.append(("grid N=8192 nuss", fx, dict(entry, samples=fx.SAMPLE_SIZE),
+                fx.REPETITIONS))
+    out.append(("u32 N=16384 nuss", fx,
+                {"n": 100, "k": 1, "N": 16384, "base_log": 7, "levels": 2,
+                 "backend": "nuss", "samples": 256}, NOISE_REPS))
+    return out
+
+
+def phase_g_noise(dev, card):
+    """Each full-width entry through its fixture's run_one (fresh keys from
+    the fixture's seeds each repetition, the criterion unchanged:
+    assert_noise_bounded, slack 0.5 bit); the measured phase-error std
+    beside the NPE's."""
+    for label, cls, entry, reps in noise_entries():
+        fx = cls()
+        fx.device = dev
+        t0 = time.perf_counter()
+        for rep in range(reps):
+            measured, predicted = fx.run_one(entry, rep_seed=1000 * rep + 7)
+            log(phase="G", noise_entry=label, fixture=fx.name, entry=entry,
+                rep=rep, measured_std=measured, npe_std=predicted,
+                ratio=measured / predicted, bound_ratio=2.0 ** 0.5, card=card)
+        log(phase="G", noise_entry=label, reps=reps,
+            seconds=time.perf_counter() - t0)
+
+
+def vrlwe_values() -> tuple[np.ndarray, np.ndarray]:
+    """Phase G's 4-bit messages: x in [0, 15] and y in [0, 15 - x], one per
+    coefficient of PHASE_G["ciphertexts"] RLWE ciphertexts of N=1024, so
+    that c * (x + y) stays in the added encoder's interval for c <= 2."""
+    rng = np.random.default_rng(PHASE_G["values_seed"])
+    rows = PHASE_G["ciphertexts"] * INT4["rlwe"].polynomial_size
+    x = rng.integers(0, 16, size=rows)
+    y = rng.integers(0, 16 - x)
+    return x.astype(np.float64), y.astype(np.float64)
+
+
+def pbs_expected(ks, sk, lut: np.ndarray, n: int) -> np.ndarray:
+    """The torus value each PBS row must carry, read from the LUT where the
+    row's modulus-switched phase points (what the blind rotation computes
+    exactly): LUT[p] for p < N, -LUT[p - N] above (negacyclic)."""
+    hat = bs.pbs_modulus_switch(torus.from_numpy(ks.data), n).numpy()
+    key = sk.inner.key.astype(np.int64)
+    phase = (hat[:, -1].astype(np.int64) - hat[:, :-1].astype(np.int64) @ key) \
+        % (2 * n)
+    lo = lut[np.minimum(phase, n - 1)]
+    hi = (np.uint64(0) - lut[np.maximum(phase - n, 0)]).astype(np.uint64)
+    return np.where(phase < n, lo, hi)
+
+
+def phase_g_vector_rlwe(dev, card):
+    """VectorRLWE at full width: 8 x 1024 packed 4-bit messages, added to a
+    second vector and multiplied by a constant per ciphertext, every value
+    decoded right; every coefficient extracted (dimension 1024),
+    keyswitched to 630 (checked against the noise model as in phase C) and
+    bootstrapped through the int4 LUT on LWEBSK (auto: mxu, K4 + K1), every
+    row equal to the LUT entry its modulus-switched phase selects; the
+    packed ciphertexts' digests equal to concrete_tpu's."""
+    g = PHASE_G
+    t0 = time.perf_counter()
+    sk = hl.LWESecretKey.new(INT4["lwe"], secret_seed=g["lwe_seed"])
+    rsk = hl.RLWESecretKey.new(INT4["rlwe"], secret_seed=g["rlwe_seed"])
+    big = rsk.to_lwe_secret_key()
+    ksk = hl.LWEKSK.new(big, sk, *INT4["ks"], mask_seed=g["ksk_seeds"][0],
+                        noise_seed=g["ksk_seeds"][1], device=dev)
+    bsk = hl.LWEBSK.new(sk, rsk, *INT4["pbs"], mask_seed=g["bsk_seeds"][0],
+                        noise_seed=g["bsk_seeds"][1], device=dev)
+    bsk.bsk_mxu, ksk.limbs  # noqa: B018 - evaluation keys onto the card
+    torch.cuda.synchronize()
+    log(phase="G", stage="VectorRLWE keys", auto_backend=bsk.resolved_backend(),
+        seconds=time.perf_counter() - t0)
+    if bsk.resolved_backend() != "mxu":
+        raise AssertionError(f"int4 LWEBSK auto is {bsk.resolved_backend()}")
+    enc = hl.Encoder.new(0.0, 15.0, nb_bit_precision=4, nb_bit_padding=1)
+    x, y = vrlwe_values()
+    a, b = (log_profile(f"encode_encrypt_packed {name}",
+                        lambda v=v, ms=ms, ns=ns: hl.VectorRLWE.encode_encrypt_packed(
+                            rsk, v, enc, mask_seed=ms, noise_seed=ns, device=dev),
+                        card, phase="G")
+            for name, v, (ms, ns) in (("a", x, g["a_seeds"]),
+                                      ("b", y, g["b_seeds"])))
+    consts = np.asarray(g["constants"])
+    out = log_profile("add_with_padding + mul_constant_static_encoder",
+                      lambda: a.add_with_padding(b).mul_constant_static_encoder(consts),
+                      card, phase="G")
+    want = np.repeat(consts, rsk.polynomial_size) * (x + y)
+    dec = log_profile("decrypt_decode", lambda: out.decrypt_decode(rsk), card,
+                      phase="G")
+    wrong = int(np.sum(np.round(dec) != want))
+    log(phase="G", stage="VectorRLWE arithmetic", values=want.size,
+        wrong=wrong, nb_valid=out.nb_valid())
+    if wrong or out.nb_valid() != want.size:
+        raise AssertionError(f"VectorRLWE: {wrong} of {want.size} values "
+                             "decode wrong")
+    found = {"vrlwe a": digest(a.data), "vrlwe b": digest(b.data),
+             "vrlwe add_mul": digest(out.data)}
+
+    def extract():
+        parts = [a.extract_bunch_of_lwes(range(a.polynomial_size), i)
+                 for i in range(a.nb_ciphertexts)]
+        return hl.VectorLWE(np.concatenate([p.data for p in parts]),
+                            [e for p in parts for e in p.encoders],
+                            np.concatenate([p.variances for p in parts]))
+
+    lwes = log_profile("extract_bunch_of_lwes", extract, card, phase="G")
+    if lwes.data.shape != (x.size, big.dimension + 1):
+        raise AssertionError(f"extracted {lwes.data.shape}")
+    if not np.array_equal(np.round(lwes.decrypt_decode(big)), x):
+        raise AssertionError("extracted LWEs decode wrong under the big key")
+    found["vrlwe extracted"] = digest(lwes.data)
+    check_digests_g(found)
+    ks = log_profile("keyswitch 1024 -> 630", lambda: lwes.keyswitch(ksk), card,
+                     phase="G")
+    check_keyswitched("VectorRLWE", ks, sk, enc, x, ksk, card, phase="G")
+    pbs = log_profile("PBS int4 LUT (mxu)",
+                      lambda: ks.bootstrap_all_with_function(bsk, int4_table, enc),
+                      card, phase="G")
+    lut = generate_functional_lut(bsk, enc, enc, int4_table)
+    expect = np.round(enc.decode_core(pbs_expected(ks, sk, lut,
+                                                   bsk.polynomial_size)))
+    got = np.round(pbs.decrypt_decode(big))
+    lut_x = (3 * x + 1) % 16
+    at_pbs = expect == lut_x            # input in x's box at the PBS
+    ks_right = np.round(ks.decrypt_decode(sk)) == x
+    log(phase="G", stage="VectorRLWE PBS", rows=x.size,
+        keyswitched_right=int(ks_right.sum()), right_at_pbs=int(at_pbs.sum()),
+        pbs_right=int((got == lut_x).sum()),
+        pbs_equal_to_lut_entry=int((got == expect).sum()), card=card)
+    if not (np.array_equal(got, expect) and np.all(got[at_pbs] == lut_x[at_pbs])):
+        raise AssertionError("VectorRLWE PBS rows differ from the LUT entries "
+                             "their modulus-switched phases select")
+
+
+def check_digests_g(found: dict[str, str]):
+    """Each VectorRLWE digest equal to concrete_tpu's (DIGESTS_G)."""
+    bad = {k: (v, DIGESTS_G.get(k)) for k, v in found.items()
+           if v != DIGESTS_G.get(k)}
+    log(phase="G", digests=found, equal_to_concrete_tpu=not bad)
+    if bad:
+        raise AssertionError(f"phase G digests differ from concrete_tpu's: {bad}")
+
+
+def phase_g_design(card, ntt_and_s):
+    """design.search on the card's cost model (concrete_tpu's sweep ranges)
+    and its top candidate; per gate preset the modelled ntt gates/s beside
+    phase E's measured ntt AND at B=2048 (`ntt_and_s`, seconds per preset;
+    within a factor of 2), and report_pbs_efficiency of that call."""
+    t0 = time.perf_counter()
+    cands = design.search()
+    model = design.GpuCostModel()
+    top = cands[0]
+    log(phase="G", design_candidates=len(cands),
+        top=dataclasses.asdict(top.params) | {"gates_per_s": top.gates_per_s,
+                                              "err_log2": top.err_log2},
+        k9_share=model.k9_share, ks_share=model.ks_share,
+        seconds=time.perf_counter() - t0)
+    for name, p in PRESETS.items():
+        if name not in ntt_and_s:
+            log(phase="G", params=name, modelled_gates_per_s=model.gates_per_s(p),
+                measured="not measured (phase E not run)")
+            continue
+        measured = 2048 / ntt_and_s[name]
+        modelled = model.gates_per_s(p, 2048)
+        eff = report_pbs_efficiency(bs.ServerConfig.from_boolean_parameters(p),
+                                    2048, ntt_and_s[name])
+        log(phase="G", params=name, modelled_gates_per_s=modelled,
+            measured_gates_per_s=measured, ratio=modelled / measured,
+            pbs_efficiency=eff, card=card)
+        if not 0.5 <= modelled / measured <= 2.0:
+            raise AssertionError(f"{name}: modelled {modelled:.0f} gates/s "
+                                 f"vs measured {measured:.0f}")
+
+
+def phase_g(dev, card, ntt_and_s):
+    """The probe, the conformance grid on the card, the full-width noise
+    entries, VectorRLWE and the design model (against phase E's ntt AND
+    seconds, `ntt_and_s`). Returns the kernel launches of its main path
+    (all but the probe and the design)."""
+    t0 = time.perf_counter()
+    rc = diagnose.main()
+    log(phase="G", probe_rc=rc, seconds=time.perf_counter() - t0)
+    if rc:
+        raise AssertionError(f"diagnose.main() returned {rc}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    reports = fixtures.run_all(repetitions=1, sample_size=100, device=dev)
+    log(phase="G", grid_seconds=time.perf_counter() - t0,
+        reports=[[r.name, r.parameters, r.passed] for r in reports])
+    failed = [(r.name, r.parameters, r.detail) for r in reports if not r.passed]
+    if failed or len(reports) != GRID_REPORTS:
+        raise AssertionError(f"grid: {len(reports)} reports, failed: {failed}")
+    phase_g_noise(dev, card)
+    torch.cuda.empty_cache()
+    phase_g_vector_rlwe(dev, card)
+    torch.cuda.synchronize()
+    launches = read_launches("G")
+    log(phase="G", launches=launches)
+    phase_g_design(card, ntt_and_s)
+    return launches
+
+
 def log_row_launches():
     """Each keyed phase-A row beside the launches of its shape key on the
     main paths that run its kernel (phases B-E) and launches x (ms - bound
@@ -1488,8 +1595,8 @@ def check_launched(path: str, launches: dict):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="ABCDEF",
-                        help="phases to run (default all: ABCDEF)")
+    parser.add_argument("--phases", default="ABCDEFG",
+                        help="phases to run (default all: ABCDEFG)")
     phases = parser.parse_args().phases
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs one GPU")
@@ -1533,11 +1640,17 @@ def main():
         del sks, cpu_check
         torch.cuda.empty_cache()
 
+    ntt_and_s = {}   # phase E's ntt AND seconds, phase G's design check
     for path, run in (("C", phase_c), ("D", phase_d), ("E", phase_e),
-                      ("F", phase_f)):
+                      ("F", phase_f), ("G", phase_g)):
         if path in phases:
             t0 = time.perf_counter()
-            path_launches[path] = run(dev, card)
+            if path == "E":
+                path_launches[path], ntt_and_s = run(dev, card)
+            elif path == "G":
+                path_launches[path] = run(dev, card, ntt_and_s)
+            else:
+                path_launches[path] = run(dev, card)
             log(phase=path, seconds=time.perf_counter() - t0)
             check_launched(path, path_launches[path])
             torch.cuda.empty_cache()

@@ -9,9 +9,12 @@ package writes in Pallas for the TPU are hand-written CUDA C++ here
 plain PyTorch versions run instead.
 
 Ported so far: the boolean gates (``concrete_tpu_torch.boolean``, u32
-torus) and the high-level API (``concrete_tpu_torch.highlevel``, u64 torus)
-through the toeplitz ("mxu"), Nussbaumer ("nuss") and exact-NTT ("ntt")
-backends of the bootstrap.
+torus) and the high-level API (``concrete_tpu_torch.highlevel``, u64 torus,
+``VectorRLWE`` included) through the toeplitz ("mxu"), Nussbaumer ("nuss")
+and exact-NTT ("ntt") backends of the bootstrap; the client side
+(``csprng``); the conformance harness (``fixtures``, ``testing``), the
+parameter co-design (``design``), the roofline and timing helpers
+(``profiling``) and the device probe (``diagnose``).
 """
 
 from . import dispersion, params  # noqa: F401

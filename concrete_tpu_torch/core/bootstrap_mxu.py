@@ -51,7 +51,7 @@ import torch
 
 from ..math import decomposition, polynomial
 from ..ops import _cuda
-from ..torus import carrier
+from ..torus import as_torus, carrier
 from . import checks
 from . import lwe as lwe_ops
 from .bootstrap import (
@@ -608,6 +608,50 @@ def shape_counts() -> dict[str, dict[str, int]]:
 def reset_launch_counts():
     for k in KERNELS:
         _cuda.counter(k)
+
+
+# ---------------------------------------------------------------------------
+# one GGSW: external product and CMux
+# ---------------------------------------------------------------------------
+
+
+def external_product_mxu(cfg: ServerConfig, rings, glwe) -> torch.Tensor:
+    """Toeplitz-matmul external product <decomp(glwe), GGSW>: glwe
+    [..., k+1, N] in the torus carrier (numpy is taken as the torus),
+    rings [R, (k+1)*n_words, 2N] int32 of one GGSW (one step's slice of
+    bsk_to_mxu). The step of the blind rotation on one GGSW: digits
+    (_digit_matrix), the table (K1 build_tables), the int8 product (int_mm)
+    and the limb recombination; on rings' device.
+
+    >>> import numpy as np
+    >>> cfg = ServerConfig(lwe_dimension=1, glwe_dimension=1, polynomial_size=16,
+    ...     pbs_base_log=7, pbs_level=2, ks_base_log=4, ks_level=3)
+    >>> ggsw = np.zeros((1, 2, 2, 2, 16), np.uint32)    # a trivial GGSW(0)
+    >>> rings = torch.from_numpy(bsk_to_mxu(ggsw, cfg)[0].view(np.int32))
+    >>> glwe = np.arange(2 * 16, dtype=np.uint32).reshape(2, 16) << 20
+    >>> int(external_product_mxu(cfg, rings, glwe).abs().max())
+    0
+    """
+    plan = MxuPlan.from_config(cfg)
+    rings = torch.as_tensor(rings)
+    glwe = as_torus(glwe, rings.device, plan.bits)
+    ks1, n = plan.glwe_size, plan.polynomial_size
+    checks.check_glwe(glwe, ks1, n, "glwe")
+    lead = glwe.shape[:-2]
+    pbn = glwe.reshape(-1, ks1, n).transpose(0, 1)      # [k+1, B, N]
+    d8 = _digit_matrix(plan, pbn)
+    rhs = build_tables(rings, n, plan.limb_drop, plan.n_words)
+    out = _toeplitz_matmul(plan, d8, rhs)               # [k+1, B, N]
+    return out.transpose(0, 1).reshape(lead + (ks1, n))
+
+
+def cmux_mxu(cfg: ServerConfig, rings, ct0, ct1) -> torch.Tensor:
+    """ct0 + extprod(ggsw, ct1 - ct0) (fourier/mod.rs:648-664): ct0 for a
+    GGSW of 0, ct1 for a GGSW of 1."""
+    dev = torch.as_tensor(rings).device
+    ct0 = as_torus(ct0, dev, cfg.bits)
+    return ct0 + external_product_mxu(cfg, rings,
+                                      as_torus(ct1, dev, cfg.bits) - ct0)
 
 
 # ---------------------------------------------------------------------------

@@ -43,9 +43,8 @@ import torch
 from ..csprng import EncryptionRandomGenerator
 from ..csprng.generator import AesCtrGenerator, State
 from ..csprng.random import RandomGenerator, batch_fill_gaussian_torus
-from ..math import crt, ntt
 from ..torus import UNSIGNED, as_torus, to_numpy
-from .glwe import GlweSecretKey
+from .glwe import GlweSecretKey, glwe_to_ntt
 
 
 def _draw_ggsw_randomness(glwe_key: GlweSecretKey, level_count: int,
@@ -221,11 +220,7 @@ def ggsw_to_ntt(ggsw, primes: tuple[int, ...], bits: int, *,
     before the residue reduction, which halves the CRT bound
     (bootstrap/fourier/mod.rs:186 fill_with_forward_fourier). Runs on
     `device`, else the tensor's own, else the CPU for numpy input."""
-    g = as_torus(ggsw, device, bits)
-    primes = tuple(primes)
-    residues = crt.CrtContext.new(primes, bits).residues_from_torus(g)
-    sp = ntt.make_stacked_plans(g.shape[-1], primes)
-    return ntt.forward_stacked(sp, torch.stack(residues)).to(torch.int32)
+    return glwe_to_ntt(ggsw, primes, bits, device=device)
 
 
 def bsk_to_ntt(bsk_data, primes: tuple[int, ...], bits: int, *,

@@ -21,6 +21,10 @@ Example:
     ((3, 8), [0, 1, 2, 3, 4, 5, 6, 7])
     >>> GlweSecretKey.generate_ternary(1, 8, SecretRandomGenerator(1), bits=64).key.dtype
     dtype('uint64')
+    >>> primes = (2013265921, 1811939329)   # two NTT primes = 1 mod 2N
+    >>> spec = glwe_to_ntt(ct, primes, 32)
+    >>> spec.shape, np.array_equal(to_numpy(glwe_from_ntt(spec, primes, 32)), ct)
+    (torch.Size([2, 3, 8]), True)
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from ..csprng import EncryptionRandomGenerator, SecretRandomGenerator
-from ..math import polynomial
+from ..math import crt, ntt, polynomial
 from ..torus import UNSIGNED, as_torus, carrier, from_numpy, to_numpy
 
 
@@ -159,3 +163,33 @@ def trivial_encrypt(poly, glwe_dimension: int, bits: int = 32,
 def trivial_decrypt(ct: torch.Tensor) -> torch.Tensor:
     """The body polynomial of a trivial GLWE."""
     return ct[..., -1, :]
+
+
+# ---------------------------------------------------------------------------
+# NTT-domain GLWE (FourierGlweCiphertext analog, crypto/glwe/fourier.rs:18)
+# ---------------------------------------------------------------------------
+
+
+def glwe_to_ntt(glwe, primes: tuple[int, ...], bits: int, *,
+                device=None) -> torch.Tensor:
+    """Forward-NTT every polynomial of a GLWE tensor [..., N] (u32 / u64
+    torus) -> [P, ..., N] Montgomery spectra in bit-reversed order, u32
+    words as int32 (values below 2^31), concrete_tpu's glwe_to_ntt bit for
+    bit. Coefficients are centered (signed) before the residue reduction,
+    the analog of the reference's standard -> Fourier conversion. Runs on
+    `device`, else the tensor's own, else the CPU for numpy input."""
+    g = as_torus(glwe, device, bits)
+    primes = tuple(primes)
+    residues = crt.CrtContext.new(primes, bits).residues_from_torus(g)
+    sp = ntt.make_stacked_plans(g.shape[-1], primes)
+    return ntt.forward_stacked(sp, torch.stack(residues)).to(torch.int32)
+
+
+def glwe_from_ntt(spectra: torch.Tensor, primes: tuple[int, ...],
+                  bits: int) -> torch.Tensor:
+    """Inverse of glwe_to_ntt: [P, ..., N] spectra -> the torus carrier
+    [..., N] (int32 / int64), on the spectra's device."""
+    primes = tuple(primes)
+    sp = ntt.make_stacked_plans(spectra.shape[-1], primes)
+    residues = ntt.inverse_stacked(sp, spectra)
+    return crt.CrtContext.new(primes, bits).combine_to_torus(list(residues))

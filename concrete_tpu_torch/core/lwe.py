@@ -275,3 +275,91 @@ def limbs_fit(base_log: int, rows: int) -> bool:
     highlevel/keys.py:340-358)."""
     return base_log <= 7 and rows * 8192 < 2 ** 31
 
+
+
+# ---------------------------------------------------------------------------
+# server-side arithmetic (torch, batch-first, on the ciphertexts' device)
+# ---------------------------------------------------------------------------
+
+
+def trivial_encrypt(pt, dimension: int, bits: int = 32,
+                    device=None) -> torch.Tensor:
+    """Trivial LWE: zero mask, body = plaintext, decryptable under any key
+    (lwe_ciphertext_trivial_encryption engine). pt [...] -> [..., n+1] in
+    the u`bits` carrier on `device` (the tensor's own for tensor input,
+    else the CPU).
+
+    >>> trivial_encrypt(np.uint32([7, 0xFFFFFFFF]), 3).tolist()
+    [[0, 0, 0, 7], [0, 0, 0, -1]]
+    """
+    pt = as_torus(pt, device, bits)
+    out = torch.zeros(pt.shape + (dimension + 1,), dtype=pt.dtype,
+                      device=pt.device)
+    out[..., -1] = pt
+    return out
+
+
+def trivial_decrypt(ct: torch.Tensor) -> torch.Tensor:
+    """Body of a trivial LWE (lwe_ciphertext_trivial_decryption engine)."""
+    return ct[..., -1]
+
+
+def add(ct_a, ct_b) -> torch.Tensor:
+    """Homomorphic addition (wrapping)."""
+    return as_torus(ct_a) + as_torus(ct_b)
+
+
+def sub(ct_a, ct_b) -> torch.Tensor:
+    return as_torus(ct_a) - as_torus(ct_b)
+
+
+def neg(ct) -> torch.Tensor:
+    """Opposite: every coefficient negated (lwe/ciphertext.rs ops)."""
+    return -as_torus(ct)
+
+
+def _as_torus(value, like: torch.Tensor) -> torch.Tensor:
+    """(Possibly negative) Python or numpy integers as `like`'s carrier,
+    wrapped two's-complement (mod 2^bits), on `like`'s device."""
+    signed = np.int32 if like.dtype == torch.int32 else np.int64
+    return torch.from_numpy(np.asarray(value).astype(signed)).to(like.device)
+
+
+def add_plaintext(ct, pt) -> torch.Tensor:
+    """Add a plaintext to the body only."""
+    ct = as_torus(ct)
+    out = ct.clone()
+    out[..., -1] += _as_torus(pt, ct)
+    return out
+
+
+def sub_plaintext(ct, pt) -> torch.Tensor:
+    ct = as_torus(ct)
+    out = ct.clone()
+    out[..., -1] -= _as_torus(pt, ct)
+    return out
+
+
+def scalar_mul(ct, cleartext) -> torch.Tensor:
+    """Multiply every coefficient by a small (possibly negative) integer
+    cleartext, wrapping."""
+    ct = as_torus(ct)
+    return ct * _as_torus(cleartext, ct)
+
+
+def affine_transform(cts, weights, bias) -> torch.Tensor:
+    """Weighted sum of a ciphertext vector plus a plaintext bias
+    (lwe_ciphertext_vector_discarding_affine_transformation).
+
+    cts [..., m, n+1]; weights [m] signed integers; bias a plaintext. The
+    products and the sum wrap in the carrier (int32 / int64), so the result
+    is exact mod 2^bits.
+
+    >>> cts = torch.tensor([[1, 2], [3, -4]], dtype=torch.int32)
+    >>> affine_transform(cts, [2, -1], 5).tolist()
+    [-1, 13]
+    """
+    cts = as_torus(cts)
+    w = _as_torus(weights, cts)
+    out = (cts * w[..., :, None]).sum(dim=-2, dtype=cts.dtype)
+    return add_plaintext(out, bias)

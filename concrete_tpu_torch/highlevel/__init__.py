@@ -8,9 +8,9 @@ arbitrary f64 -> f64 functions, and serialization. Torus is u64 here
 
 Batch-first redesign: `LWE` carries a ciphertext *batch* of any shape with a
 shared encoder; `VectorLWE` mirrors the reference's per-slot-encoder
-semantics. The port of concrete_tpu/highlevel: bootstrap and keyswitch run on
-the keys' device (the GPU unless device="cpu"); `VectorRLWE` is not ported
-yet (it needs GLWE encryption on the AES-CTR streams).
+semantics; `VectorRLWE` packs N messages per RLWE ciphertext. The port of
+concrete_tpu/highlevel: bootstrap and keyswitch run on the keys' device
+(the GPU unless device="cpu").
 """
 
 from .encoder import Encoder
@@ -31,6 +31,7 @@ from .keys import LWEBSK, LWEKSK, LWESecretKey, RLWESecretKey
 from .lwe import LWE
 from .plaintext import Plaintext
 from .vector_lwe import VectorLWE
+from .vector_rlwe import VectorRLWE
 from .params_presets import (
     LWEParams,
     RLWEParams,
@@ -66,7 +67,7 @@ from .params_presets import (
 )
 
 __all__ = [
-    "Encoder", "LWE", "Plaintext", "VectorLWE",
+    "Encoder", "LWE", "Plaintext", "VectorLWE", "VectorRLWE",
     "LWESecretKey", "RLWESecretKey", "LWEBSK", "LWEKSK",
     "LWEParams", "RLWEParams", "CryptoAPIError",
     "DimensionError", "DeltaError", "PaddingError", "PrecisionError",

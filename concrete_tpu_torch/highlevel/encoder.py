@@ -6,8 +6,8 @@ and tracking `nb_bit_precision` usable message bits that shrink as noise
 grows (update_precision_from_variance, :151).
 
 A copy of concrete_tpu/highlevel/encoder.py on the port's torus, npe and
-dispersion modules (host numpy, u64 torus), without the struct-of-arrays
-helpers that only VectorRLWE uses.
+dispersion modules (host numpy, u64 torus), with the struct-of-arrays
+helpers that VectorRLWE uses (EncoderFields, encode_bulk, ...).
 """
 
 from __future__ import annotations
@@ -221,3 +221,92 @@ class Encoder:
     def load(cls, path: str) -> "Encoder":
         with open(path) as f:
             return cls.from_json(f.read())
+
+
+# ---------------------------------------------------------------------------
+# vectorized bulk helpers: struct-of-arrays view over Encoder lists
+# ---------------------------------------------------------------------------
+#
+# The VectorRLWE API carries one Encoder PER POLYNOMIAL COEFFICIENT (m*N of
+# them); per-coefficient method calls would cost O(m*N) interpreter
+# iterations of encode/NPE arithmetic (reference analog is a flat compiled
+# loop, vector_rlwe/mod.rs:1223). These helpers gather the encoder fields
+# once and do all arithmetic as numpy array ops.
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderFields:
+    """Field arrays for a list of encoders (all shape [len(encoders)])."""
+
+    o: np.ndarray          # f64
+    delta: np.ndarray      # f64
+    precision: np.ndarray  # i64
+    padding: np.ndarray    # i64
+    round: np.ndarray      # bool
+    valid: np.ndarray      # bool
+
+    @classmethod
+    def gather(cls, encoders) -> "EncoderFields":
+        m = len(encoders)
+        o = np.fromiter((e.o for e in encoders), np.float64, m)
+        delta = np.fromiter((e.delta for e in encoders), np.float64, m)
+        prec = np.fromiter((e.nb_bit_precision for e in encoders), np.int64, m)
+        pad = np.fromiter((e.nb_bit_padding for e in encoders), np.int64, m)
+        rnd = np.fromiter((e.round for e in encoders), bool, m)
+        return cls(o, delta, prec, pad, rnd, (prec > 0) & (delta > 0))
+
+    def granularity(self) -> np.ndarray:
+        return np.where(self.valid, self.delta, 0.0) / np.exp2(
+            self.precision.astype(np.float64))
+
+
+def _closest_representable_varbits(x: np.ndarray, base_log: np.ndarray):
+    """_closest_representable_array with a per-element base_log."""
+    non_rep = (DTYPE(BITS) - base_log.astype(DTYPE)) % DTYPE(BITS)
+    safe = np.maximum(non_rep, DTYPE(1))
+    msb = (x >> (safe - DTYPE(1))) & DTYPE(1)
+    with np.errstate(over="ignore"):
+        snapped = ((x >> safe) + msb) << safe
+    return np.where(non_rep == 0, x, snapped)
+
+
+def encode_bulk(f: EncoderFields, messages: np.ndarray) -> np.ndarray:
+    """Vectorized Encoder.encode_outside_interval over an encoder list:
+    u64 torus values, 0 at invalid slots."""
+    msgs = np.asarray(messages, dtype=np.float64)
+    ratio = np.where(f.valid, msgs - f.o, 0.0) / np.where(f.valid, f.delta, 1.0)
+    res = from_torus_f64(ratio, BITS)
+    if f.round.any():
+        res = np.where(
+            f.round & f.valid, _closest_representable_varbits(res, f.precision), res)
+    res = res >> f.padding.astype(DTYPE)
+    return np.where(f.valid, res, DTYPE(0))
+
+
+def opposite_correction_bulk(f: EncoderFields) -> np.ndarray:
+    """Vectorized lwe._opposite_correction: (1 << (B-pad)) - (1 << (B-pad-prec)),
+    wrapping for pad == 0; zero at invalid slots."""
+    with np.errstate(over="ignore"):
+        hi_shift = np.clip(BITS - f.padding, 0, BITS - 1).astype(DTYPE)
+        hi = np.where(f.padding > 0, DTYPE(1) << hi_shift, DTYPE(0))
+        lo_shift = np.clip(BITS - (f.padding + f.precision), 0, BITS - 1
+                           ).astype(DTYPE)
+        lo = DTYPE(1) << lo_shift
+        return np.where(f.valid, hi - lo, DTYPE(0))
+
+
+def update_precision_bulk(encoders, variances: np.ndarray) -> None:
+    """Vectorized Encoder.update_precision_from_variance over a list: shrink
+    each VALID encoder's precision by the noise-bit overlap, in place."""
+    f = EncoderFields.gather(encoders)
+    std = np.sqrt(np.maximum(np.asarray(variances, np.float64), 0.0))
+    modular = np.maximum(std * 2.0 ** BITS, 1e-300)
+    tmp = np.log2(modular * 4.0)
+    nb_noise = np.where(tmp < 0.0, 0, np.ceil(tmp).astype(np.int64))
+    if np.any(f.valid & (nb_noise == 0)):
+        bad = np.nonzero(f.valid & (nb_noise == 0))[0][0]
+        raise errors.NoNoiseInCiphertext(float(variances[bad]))
+    overlap = np.maximum(nb_noise + f.precision + f.padding - BITS, 0)
+    new_prec = np.maximum(f.precision - overlap, 0)
+    for i in np.nonzero(f.valid & (overlap > 0))[0]:
+        encoders[i].nb_bit_precision = int(new_prec[i])

@@ -23,6 +23,9 @@ Example:
     >>> from concrete_tpu_torch.torus import from_torus_f64
     >>> int(from_torus_f64(0.5)), int(from_torus_f64(0.5, 64))
     (2147483648, 9223372036854775808)
+    >>> from concrete_tpu_torch.torus import torus_modular_distance
+    >>> float(torus_modular_distance(np.uint32(1), np.uint32(0xFFFFFFFF), 32)) * 2.0 ** 32
+    2.0
 """
 
 from __future__ import annotations
@@ -120,3 +123,23 @@ def into_torus_f64(t, bits: int) -> np.ndarray:
     """Closest float of an unsigned torus element (torus/mod.rs:50-55)."""
     return np.asarray(t).astype(np.float64) * 2.0 ** -bits
 
+
+
+def into_signed_torus_f64(t, bits: int) -> np.ndarray:
+    """Signed-centered float view in [-1/2, 1/2): the torus value read as a
+    signed integer before the float conversion (fft/transform.rs:732-760).
+    Takes numpy arrays or carrier tensors."""
+    return np.asarray(to_numpy(t)).astype(_SIGNED_NP[bits]).astype(
+        np.float64) * 2.0 ** -bits
+
+
+def torus_modular_distance(a, b, bits: int) -> np.ndarray:
+    """Signed distance a - b on the torus, as a float fraction of the torus
+    (private/mod.rs:64-74): the wrapped difference read as a signed
+    integer, scaled. Takes numpy arrays or carrier tensors."""
+    dt = UNSIGNED[bits]
+    ua = np.asarray(to_numpy(a) if isinstance(a, torch.Tensor) else a)
+    ub = np.asarray(to_numpy(b) if isinstance(b, torch.Tensor) else b)
+    with np.errstate(over="ignore"):
+        d = (dt(0) + ua.astype(dt, copy=False)) - ub.astype(dt, copy=False)
+    return d.astype(dt).astype(_SIGNED_NP[bits]).astype(np.float64) * 2.0 ** -bits

@@ -562,3 +562,30 @@ def test_ntt_gates_on_gpu_match_cpu(dev):
     got = ntt.mux(ca, cb, cc)
     assert torch.equal(got.cpu(), cpu.mux(ca, cb, cc))
     np.testing.assert_array_equal(cks.decrypt(got), np.where(a, b, c))
+
+
+@pytest.mark.parametrize("bits,n,k,bl,lv,b", [
+    (32, 64, 1, 7, 2, 5), (32, 256, 2, 8, 2, 33), (32, 1024, 1, 7, 3, 100),
+    (64, 64, 2, 8, 2, 5), (64, 1024, 1, 7, 3, 64)])
+def test_external_product_and_cmux_mxu_on_gpu_match_cpu(dev, bits, n, k, bl,
+                                                         lv, b):
+    """One GGSW's external product and CMux (K1, the int8 product, the limb
+    recombination) on the card, equal to the CPU's plain path."""
+    cfg = bs.ServerConfig(lwe_dimension=1, glwe_dimension=k, polynomial_size=n,
+                          pbs_base_log=bl, pbs_level=lv, ks_base_log=2,
+                          ks_level=5, bits=bits)
+    rng = np.random.default_rng(n + bl + bits)
+    dt = np.uint32 if bits == 32 else np.uint64
+    ggsw = rng.integers(0, np.iinfo(dt).max, size=(1, lv, k + 1, k + 1, n),
+                        dtype=dt, endpoint=True)
+    rings = torch.from_numpy(bsx.bsk_to_mxu(ggsw, cfg)[0].view(np.int32))
+    ct0, ct1 = (torus.from_numpy(rng.integers(
+        0, np.iinfo(dt).max, size=(b, k + 1, n), dtype=dt, endpoint=True))
+        for _ in range(2))
+    before = bsx.build_tables.launches
+    got = bsx.external_product_mxu(cfg, rings.to(dev), ct1.to(dev))
+    got_cmux = bsx.cmux_mxu(cfg, rings.to(dev), ct0.to(dev), ct1.to(dev))
+    assert bsx.build_tables.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), bsx.external_product_mxu(cfg, rings, ct1))
+    assert torch.equal(got_cmux.cpu(), bsx.cmux_mxu(cfg, rings, ct0, ct1))

@@ -19,16 +19,16 @@ the stores). Other versions of the source given as arguments (the parent
 commit's, say) are built and timed whole beside it, an A/B comparison
 inside one run. At chip_smoke.py's four K4 shapes (int4, B = 2048, N =
 1024, k+1 = 2: base_log 7 level 3, 10/3, 16/2, 16/3) it times every build,
-20 launches in a CUDA graph replayed between CUDA events, and checks the
-whole builds against rotdig64_plain. One JSON line per (shape, build) with
-the card's name and power limit; a phase's cost is the whole kernel's
-time less the time of the copy that skips it.
+20 launches in a CUDA graph replayed between CUDA events (profiling.time_ms),
+and checks the whole builds against rotdig64_plain. One JSON line per
+(shape, build) with the card's name and power limit; a phase's cost is the
+whole kernel's time less the time of the copy that skips it.
 
 Then `cuobjdump -sass` of the whole build and of the others: each K4
 function's instructions by pipe (sass_counts), written with the SASS to
 chiprun_out/k4_sass/, its loops, and the instructions a coefficient issues
 at each shape (issued_per_coefficient), to hold beside
-chip_smoke.rotdig64_work's fewest.
+profiling.rotdig64_work's fewest.
 """
 
 import ctypes
@@ -49,6 +49,7 @@ import chip_smoke  # noqa: E402
 from concrete_tpu_torch import torus  # noqa: E402
 from concrete_tpu_torch.core import bootstrap_mxu as bsx  # noqa: E402
 from concrete_tpu_torch.ops import _cuda  # noqa: E402
+from concrete_tpu_torch.profiling import time_ms  # noqa: E402
 
 # the K4 loop that gathers a thread's four words (kept by every build but
 # "window", which replaces it)
@@ -257,29 +258,6 @@ def issued_per_coefficient(ins, n: int, level: int, n_sub: int,
     return dict(out)
 
 
-def graph_us(fn, reps: int = 20) -> float:
-    """Device us a launch: `reps` launches captured in a CUDA graph and
-    replayed between two CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps * 1e3
-
-
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("k4_sweep: no CUDA device")
@@ -321,7 +299,7 @@ def main():
             if equal is False:
                 raise AssertionError(f"{label} {name} differs")
             print(json.dumps({"shape": label, "build": name, "equal": equal,
-                              "us": graph_us(run), "card": card}), flush=True)
+                              "us": time_ms(run) * 1e3, "card": card}), flush=True)
     OUT.mkdir(parents=True, exist_ok=True)
     src = _cuda.SOURCES["mxu_kernels"].read_text()
     geometry = {"whole": tuple(int(re.search(rf"constexpr int {c} = (\d+);",

@@ -1,10 +1,17 @@
 #!/usr/bin/env python3
-"""Compute phase F's reference digests of chip_smoke.py with concrete_tpu
-(the JAX package) on the CPU:
+"""Compute the reference digests of chip_smoke.py's phases F and G with
+concrete_tpu (the JAX package) on the CPU:
 
-    JAX_PLATFORMS=cpu python3 tools/phase_f_reference.py
+    JAX_PLATFORMS=cpu python3 tools/phase_f_reference.py [F] [G]
 
-From the seeds of chip_smoke.PHASE_F it makes the DEFAULT and TFHE_LIB
+(both without arguments). Phase G (~15 s): from the seeds of
+chip_smoke.PHASE_G, an RLWE128_1024_1 key, the two packed VectorRLWEs of
+chip_smoke.vrlwe_values (8 ciphertexts x 1024 4-bit messages each), their
+add_with_padding times the constants of mul_constant_static_encoder, and the
+LWEs of every coefficient of the first (extract_1_lwe in a loop): the
+sha256[:16] of each, the DIGESTS_G dict of chip_smoke.py.
+
+Phase F: from the seeds of chip_smoke.PHASE_F it makes the DEFAULT and TFHE_LIB
 boolean keys, the int4 high-level keys of examples/int4_lut.py, the
 2048-row encrypt_uint planes of the adder's operands, the adder's output on
 their first 32 rows (the gates are exact, so these rows are the same in a
@@ -30,7 +37,32 @@ def digest(arr) -> str:
     return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()[:16]
 
 
-def main():
+def phase_g() -> dict:
+    from chip_smoke import INT4, PHASE_G, vrlwe_values
+    from concrete_tpu import highlevel as hl
+
+    g = PHASE_G
+    rsk = hl.RLWESecretKey.new(INT4["rlwe"], secret_seed=g["rlwe_seed"])
+    enc = hl.Encoder.new(0.0, 15.0, nb_bit_precision=4, nb_bit_padding=1)
+    x, y = vrlwe_values()
+    a = hl.VectorRLWE.encode_encrypt_packed(rsk, x, enc, mask_seed=g["a_seeds"][0],
+                                            noise_seed=g["a_seeds"][1])
+    b = hl.VectorRLWE.encode_encrypt_packed(rsk, y, enc, mask_seed=g["b_seeds"][0],
+                                            noise_seed=g["b_seeds"][1])
+    out = a.add_with_padding(b).mul_constant_static_encoder(
+        np.asarray(g["constants"]))
+    consts = np.repeat(np.asarray(g["constants"]), rsk.polynomial_size)
+    assert np.array_equal(np.round(out.decrypt_decode(rsk)), consts * (x + y))
+    n = a.polynomial_size
+    extracted = np.concatenate([
+        np.concatenate([a.extract_1_lwe(c, i).data for c in range(n)])
+        for i in range(a.nb_ciphertexts)])
+    return {"vrlwe a": digest(a.data), "vrlwe b": digest(b.data),
+            "vrlwe add_mul": digest(out.data),
+            "vrlwe extracted": digest(extracted)}
+
+
+def phase_f() -> dict:
     import jax.numpy as jnp
 
     from chip_smoke import PHASE_F, adder_values
@@ -95,7 +127,18 @@ def main():
                                       base_log=bl, level_count=lv))
     out["ks key"] = digest(kskey.data)
     out["ks out"] = digest(ks_out)
-    print(json.dumps(out, indent=1))
+    return out
+
+
+def main():
+    phases = sys.argv[1:] or ["F", "G"]
+    for name, fn in (("F", phase_f), ("G", phase_g)):
+        if name in phases:
+            t0 = time.perf_counter()
+            out = fn()
+            print(f"phase {name}", time.perf_counter() - t0, file=sys.stderr)
+            print(f"DIGESTS{'' if name == 'F' else '_G'} =",
+                  json.dumps(out, indent=1))
 
 
 if __name__ == "__main__":
