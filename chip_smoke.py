@@ -103,6 +103,28 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           cost model and, per gate preset, the modelled ntt gates/s within
           2x of phase E's measured AND with report_pbs_efficiency. K1, K2,
           K4-K7 and K9 must launch.
+  H       parallel/ and the examples on the card. H1: a process group of
+          one rank on NCCL (a FileStore), make_mesh(1, 1), and at B=2048
+          gate_pipeline_dp (mxu and ntt) and gate_pipeline_dp_tp_mxu on the
+          TPU128 and DEFAULT keys, gate_pipeline_dp_tp (the level-split ntt
+          composition) on the TPU128 ntt twin and gate_pipeline_dp_tp_nuss
+          on phase D's backend="nuss" TFHE_LIB twin: every output bit for
+          bit the unsharded call's and AND's truth table, each pipeline's
+          median of 3 beside the unsharded call's, the two called in turn.
+          The launch counts are reset just before each of the pipeline's
+          timed calls and read just after (the unsharded calls fall
+          outside): dp mxu and
+          dp_tp_mxu must launch K1 and K2, dp_tp_nuss K1, K5 and K7, dp ntt
+          K9; the level-split ntt composition runs no kernel. H2:
+          multihost.run(2, 1) on the card, two processes on gloo (NCCL
+          refuses two ranks on one GPU), the toy and the TPU128 real-key
+          tiers (rank 0 makes the key and broadcasts it) at B=256 with dp and then tp across the
+          processes: every shard equal to the single-device call, the
+          gathered rows decrypting to a & b, each rank's seconds and bytes
+          sent logged beside the plan's count (which they must equal).
+          H3: the seven examples' main() at their published parameters and
+          sizes on the card, each checking its own answers, its launches a
+          path of their own (K1, K4 and K9 must launch).
 
 The bounds and timers (bound_ms, time_ms, median_s, profile_call, the
 instruction counts of K4 and K9) come from concrete_tpu_torch.profiling.
@@ -119,16 +141,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import importlib
 import json
 import math
+import os
+import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from concrete_tpu_torch import boolean, design, diagnose, fixtures, highlevel as hl
-from concrete_tpu_torch import native, torus
+from concrete_tpu_torch import examples, native, torus
 from concrete_tpu_torch.boolean import circuits
 from concrete_tpu_torch.core import bootstrap as bs
 from concrete_tpu_torch.core import bootstrap_mxu as bsx
@@ -141,6 +168,7 @@ from concrete_tpu_torch.csprng import EncryptionRandomGenerator, aes
 from concrete_tpu_torch.csprng.generator import AesCtrGenerator
 from concrete_tpu_torch.highlevel.lwe import _accumulator, generate_functional_lut
 from concrete_tpu_torch.ops import _cuda
+from concrete_tpu_torch.parallel import mesh as pmesh, multihost
 from concrete_tpu_torch.profiling import (
     INT8_TENSOR_OPS_PER_S,
     bound_ms,
@@ -194,7 +222,21 @@ PATH_KERNELS = {"B": ("build_tables", "rotdig", "rotdig_recombine"),
                 "E": ("ntt_cmux", "fused_external_product_acc"),
                 "F": ("ntt_cmux", "build_tables", "rotdig", "rotdig_recombine"),
                 "G": ("build_tables", "rotdig", "rotdig64", "recombine_inv",
-                      "recombine_inv64", "rotdig_fwd_nuss", "ntt_cmux")}
+                      "recombine_inv64", "rotdig_fwd_nuss", "ntt_cmux"),
+                # H1: the pipelines' timed calls, H3: the examples (H2's
+                # ranks are other processes)
+                "H1": ("build_tables", "rotdig", "recombine_inv",
+                       "rotdig_fwd_nuss", "ntt_cmux"),
+                "H3": ("build_tables", "rotdig64", "ntt_cmux")}
+# phase H1: the kernels each pipeline must launch in its own timed calls
+H1_KERNELS = {
+    "gate_pipeline_dp mxu": ("build_tables", "rotdig"),
+    "gate_pipeline_dp ntt": ("ntt_cmux",),
+    "gate_pipeline_dp_tp_mxu": ("build_tables", "rotdig"),
+    "gate_pipeline_dp_tp (ntt, level split)": (),
+    "gate_pipeline_dp_tp_nuss": ("build_tables", "recombine_inv",
+                                 "rotdig_fwd_nuss"),
+}
 CPU_ROWS = 32
 # phase C: examples/int4_lut.py at the JAX suite's batch
 INT4 = {"lwe": hl.LWE128_630, "rlwe": hl.RLWE128_1024_1, "pbs": (7, 3),
@@ -259,6 +301,9 @@ DIGESTS_G = {
     "vrlwe b": "cfb58da32d52944c",
     "vrlwe add_mul": "35a54d6e2c6eb245",
     "vrlwe extracted": "0660a1c97f6ab8db"}
+# phase H: parallel/ on one card (H1 on NCCL, H2 two processes on gloo)
+PHASE_H = {"batch": 2048, "reps": 3, "h2_processes": 2, "h2_batch": 256,
+           "seed": 8000}
 _COUNTED = (bsx, bsn, bsntt)
 # phase -> {kernel: {shape key: launches}} of its main path (read_launches),
 # and phase A's rows that name a shape key (kernel, label, key, ms, bound)
@@ -290,6 +335,21 @@ def read_launches(phase: str) -> dict[str, int]:
     PATH_SHAPES[phase] = shapes
     log(phase=phase, launches_by_shape=shapes)
     return launch_counts()
+
+
+def add_launches(path: str, total: dict[str, int]) -> dict[str, int]:
+    """The launches since the last reset, added to `total` and, per shape
+    key, to PATH_SHAPES[path] (a path read in several windows)."""
+    counts = launch_counts()
+    shapes = PATH_SHAPES.setdefault(path, {})
+    for mod in _COUNTED:
+        for kernel, by_key in mod.shape_counts().items():
+            for key, n in by_key.items():
+                into = shapes.setdefault(kernel, {})
+                into[key] = into.get(key, 0) + n
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+    return counts
 
 
 def log(**fields):
@@ -1574,6 +1634,157 @@ def phase_g(dev, card, ntt_and_s):
     return launches
 
 
+def timed(fn):
+    """(seconds, output) of one synchronised call of fn."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def h1_cell(name, pipeline, fn, unsharded, args, cks, a, b, card, total):
+    """One H1 pipeline: its output equal to the unsharded call's and AND's
+    truth table; PHASE_H["reps"] timed calls of each, in turn, their
+    medians and every time logged; the launches of the pipeline's timed
+    calls alone (reset just before each, read just after) must include
+    H1_KERNELS[pipeline] and are added to `total`."""
+    want = unsharded(*args)
+    if not np.array_equal(cks.decrypt(want), a & b):
+        raise AssertionError(f"{name} {pipeline}: AND's truth table")
+    pmesh.reset_sent_bytes()
+    counted, mesh_t, base_t = {}, [], []
+    for _ in range(PHASE_H["reps"]):   # in turn: host drift falls on both
+        base_t.append(timed(lambda: unsharded(*args))[0])
+        reset_launch_counts()
+        secs, out = timed(lambda: fn(*args))
+        add_launches("H1", counted)
+        mesh_t.append(secs)
+        if not torch.equal(out, want):
+            raise AssertionError(f"{name} {pipeline}: differs from the "
+                                 "unsharded call")
+    launches = {k: n for k, n in counted.items() if n}
+    for k, n in counted.items():
+        total[k] = total.get(k, 0) + n
+    mesh_s, base_s = statistics.median(mesh_t), statistics.median(base_t)
+    log(phase="H1", params=name, pipeline=pipeline, mesh="1x1 nccl",
+        batch=PHASE_H["batch"], bit_identical=True, truth_table="ok",
+        ms_per_call=mesh_s * 1e3, unsharded_ms_per_call=base_s * 1e3,
+        wrapper_ms=(mesh_s - base_s) * 1e3, ms_each=[t * 1e3 for t in mesh_t],
+        unsharded_ms_each=[t * 1e3 for t in base_t],
+        sent_bytes=pmesh.sent_bytes(), launches_in_timed_calls=launches,
+        card=card)
+    missing = [k for k in H1_KERNELS[pipeline] if k not in launches]
+    if missing:
+        raise AssertionError(f"H1 {name} {pipeline} never launched {missing}")
+
+
+def phase_h1(dev, card):
+    """Every pipeline of parallel/mesh.py on a world of one (NCCL), at full
+    width, against the unsharded call. Returns the launches of the
+    pipelines' timed calls."""
+    total = {}
+    torch.cuda.set_device(0)
+    store = dist.FileStore(os.path.join(tempfile.mkdtemp(), "h1_store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh(1, 1, "cuda")
+        for name in ("TPU128", "DEFAULT", "TFHE_LIB"):
+            cks, sks = boolean.gen_keys(PRESETS[name], secret_seed=11,
+                                        mask_seed=12, noise_seed=13,
+                                        device=dev)
+            cfg = sks.cfg
+            (a, b, _), (ca, cb, _) = encrypt_bools(cks, PHASE_H["batch"],
+                                                   PHASE_H["seed"])
+            lin = torus.from_numpy(ca, dev) + torus.from_numpy(cb, dev)
+            lin[:, -1] -= 1 << (32 - PLAINTEXT_LOG_SCALING_FACTOR)   # AND
+            lut = sks._lut()
+            if name == "TFHE_LIB":     # phase D's backend="nuss" twin
+                nuss = (sks.bsk_nuss, sks.ksk8, lut, lin)
+                cells = [("gate_pipeline_dp_tp_nuss",
+                          pmesh.gate_pipeline_dp_tp_nuss(cfg, mesh),
+                          lambda *x: bsn.bootstrap_keyswitch_nuss(cfg, *x),
+                          nuss)]
+            else:
+                mxu = (sks.bsk_mxu, sks.ksk8, lut, lin)
+                ntt = (sks.bsk_ntt, sks.ksk8, lut, lin)
+                cells = [
+                    ("gate_pipeline_dp mxu",
+                     pmesh.gate_pipeline_dp(cfg, mesh, "mxu"),
+                     lambda *x: bsx.bootstrap_keyswitch_mxu(cfg, *x), mxu),
+                    ("gate_pipeline_dp ntt",
+                     pmesh.gate_pipeline_dp(cfg, mesh, "ntt"),
+                     lambda *x: bsntt.bootstrap_keyswitch(cfg, *x), ntt),
+                    ("gate_pipeline_dp_tp_mxu",
+                     pmesh.gate_pipeline_dp_tp_mxu(cfg, mesh),
+                     lambda *x: bsx.bootstrap_keyswitch_mxu(cfg, *x), mxu)]
+            if name == "TPU128":
+                cells.append(("gate_pipeline_dp_tp (ntt, level split)",
+                              pmesh.gate_pipeline_dp_tp(cfg, mesh),
+                              lambda *x: bsntt.bootstrap_keyswitch(cfg, *x),
+                              ntt))
+            for pipeline, fn, unsharded, args in cells:
+                h1_cell(name, pipeline, fn, unsharded, args, cks, a, b, card,
+                        total)
+            del sks, cells
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return total
+
+
+def phase_h2(card):
+    """multihost.run(2, 1) on the card: two processes on gloo (CUDA
+    tensors), the toy and TPU128 real-key tiers, dp then tp across the
+    processes; every rank's seconds and bytes sent beside the plan's."""
+    t0 = time.perf_counter()
+    stats = multihost.run(PHASE_H["h2_processes"], 1, timeout=600,
+                          device="cuda", backend="gloo",
+                          batch=PHASE_H["h2_batch"])
+    for s in stats:
+        if s["sent_bytes"] != s["planned_bytes"]:
+            raise AssertionError(f"H2 {s['tag']} rank {s['rank']}: sent "
+                                 f"{s['sent_bytes']} bytes, the plan says "
+                                 f"{s['planned_bytes']}")
+        log(phase="H2", backend="gloo (CUDA tensors)", batch=PHASE_H["h2_batch"],
+            **s, card=card)
+    log(phase="H2", processes=PHASE_H["h2_processes"], calls=len(stats),
+        bit_identical=True, and_truth_table="ok",
+        seconds=time.perf_counter() - t0)
+
+
+def phase_h3(card):
+    """The seven examples at their published parameters and sizes on the
+    card, each checking its own answers."""
+    for name in examples.NAMES:
+        t0 = time.perf_counter()
+        mod = importlib.import_module(f"concrete_tpu_torch.examples.{name}")
+        lines = mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        log(phase="H3", example=name, lines=len(lines), answers="ok",
+            seconds=time.perf_counter() - t0, card=card)
+
+
+def phase_h(dev, card):
+    """parallel/ and the examples; returns the kernel launches of two
+    paths, H1 (the pipelines' timed calls) and H3 (the examples); H2's
+    ranks count in their own processes."""
+    t0 = time.perf_counter()
+    h1 = phase_h1(dev, card)
+    log(phase="H1", launches=h1, launches_by_shape=PATH_SHAPES["H1"],
+        seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    phase_h2(card)
+    log(phase="H2", seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    phase_h3(card)
+    torch.cuda.synchronize()
+    h3 = read_launches("H3")
+    log(phase="H3", launches=h3, seconds=time.perf_counter() - t0)
+    return {"H1": h1, "H3": h3}
+
+
 def log_row_launches():
     """Each keyed phase-A row beside the launches of its shape key on the
     main paths that run its kernel (phases B-E) and launches x (ms - bound
@@ -1595,8 +1806,8 @@ def check_launched(path: str, launches: dict):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default="ABCDEFG",
-                        help="phases to run (default all: ABCDEFG)")
+    parser.add_argument("--phases", default="ABCDEFGH",
+                        help="phases to run (default all: ABCDEFGH)")
     phases = parser.parse_args().phases
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script needs one GPU")
@@ -1642,17 +1853,20 @@ def main():
 
     ntt_and_s = {}   # phase E's ntt AND seconds, phase G's design check
     for path, run in (("C", phase_c), ("D", phase_d), ("E", phase_e),
-                      ("F", phase_f), ("G", phase_g)):
+                      ("F", phase_f), ("G", phase_g), ("H", phase_h)):
         if path in phases:
             t0 = time.perf_counter()
             if path == "E":
                 path_launches[path], ntt_and_s = run(dev, card)
             elif path == "G":
                 path_launches[path] = run(dev, card, ntt_and_s)
+            elif path == "H":
+                path_launches.update(run(dev, card))
             else:
                 path_launches[path] = run(dev, card)
             log(phase=path, seconds=time.perf_counter() - t0)
-            check_launched(path, path_launches[path])
+            for p in ("H1", "H3") if path == "H" else (path,):
+                check_launched(p, path_launches[p])
             torch.cuda.empty_cache()
     log(phase="all", seconds=time.perf_counter() - t_all)
     log_row_launches()

@@ -143,6 +143,25 @@ def pbs_modulus_switch(x: torch.Tensor, poly_size: int, offset: int = 0,
     return (out << lut_count_log).to(torch.int32)
 
 
+def rotation_start(lut: torch.Tensor, lwe: torch.Tensor, poly_size: int,
+                   ms_offset: int = 0, lut_count_log: int = 0):
+    """The start of a blind rotation, shared by every backend and by the
+    tensor-parallel pipelines (fourier/mod.rs:666-690): lwe [..., n+1]
+    flattened to B rows, the modulus-switched mask degrees a_hats [n, B]
+    int32, and the accumulator X^-b_hat * lut, [k+1, B, N], contiguous."""
+    flat = lwe.reshape(-1, lwe.shape[-1])
+    b = flat.shape[0]
+    b_hat = pbs_modulus_switch(flat[:, -1], poly_size, ms_offset,
+                               lut_count_log)
+    a_hats = pbs_modulus_switch(flat[:, :-1], poly_size, ms_offset,
+                                lut_count_log).T.contiguous()
+    ks1 = lut.shape[-2]
+    lut_b = lut.reshape(-1, ks1, poly_size).expand(b, ks1, poly_size)
+    acc = polynomial.negacyclic_monomial_div(lut_b.transpose(0, 1),
+                                             b_hat[None, :]).contiguous()
+    return acc, a_hats
+
+
 def sample_extract(glwe: torch.Tensor) -> torch.Tensor:
     """LWE (dimension k*N) of coefficient 0 of the GLWE [..., k+1, N]
     (fourier/mod.rs:750-790): each mask polynomial reversed and negated,

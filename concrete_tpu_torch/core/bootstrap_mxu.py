@@ -56,7 +56,7 @@ from . import checks
 from . import lwe as lwe_ops
 from .bootstrap import (
     ServerConfig,
-    pbs_modulus_switch,
+    rotation_start,
     sample_extract,
     sample_extract_nth,
 )
@@ -677,43 +677,71 @@ def auto_defer(plan: MxuPlan, batch: int) -> bool:
     return s_bytes > 100e6 and (batch >= 4096 or s_bytes >= 200e6)
 
 
-def _step_buffers(plan: MxuPlan, b: int, device):
-    """The per-step d8 / RHS / S buffers, allocated once per rotation."""
+def _step_buffers(plan: MxuPlan, b: int, device, blocks: int | None = None):
+    """The per-step d8 / RHS / S buffers, allocated once per rotation; the
+    RHS holds `blocks` ring blocks (a tensor-parallel rank's) or all R."""
     n, r = plan.polynomial_size, plan.row_blocks
     cols = plan.glwe_size * plan.limbs_used * n
     d8 = torch.empty((b, r * n), dtype=torch.int8, device=device)
-    rhs = table_buffer(r * n, cols, device=device)
+    rhs = table_buffer((r if blocks is None else blocks) * n, cols,
+                       device=device)
     s = torch.zeros((b, cols), dtype=torch.int32, device=device)
     return d8, rhs, s
 
 
-def _plain_scan(plan: MxuPlan, bsk_rings, acc, a_hats):
-    """One CMux step per mask element: digits, table, dot, recombine."""
-    d8, rhs, s = _step_buffers(plan, acc.shape[1], acc.device)
+def step_dot(d8, rhs, s, c0: int = 0, reduce=None):
+    """The int8 product of one CMux step into s: d8 [B, R*N] x rhs [R*N,
+    cols], or per group (the Nussbaumer frequencies) d8 [G, B, .] x rhs [G,
+    ., cols]. Where rhs holds only a tensor-parallel rank's ring blocks,
+    its rows meet d8's columns from c0 on, and `reduce` sums the partial S
+    over the ranks (exact: the plan's row bound covers the whole
+    contraction). Returns S."""
+    rows = rhs.shape[-2]
+    if rows != d8.shape[-1]:
+        d8 = d8[..., c0:c0 + rows].contiguous()
+    if d8.dim() == 2:
+        int_mm(d8, rhs, out=s)
+    else:
+        for z in range(d8.shape[0]):
+            int_mm(d8[z], rhs[z], out=s[z])
+    return s if reduce is None else reduce(s)
+
+
+def _plain_scan(plan: MxuPlan, bsk_rings, acc, a_hats, block0: int = 0,
+                reduce=None):
+    """One CMux step per mask element: digits, table, dot, recombine. A
+    tensor-parallel rank passes its ring blocks (bsk_rings [n, R/tp, ...]
+    from block `block0` on) and `reduce` (step_dot)."""
+    n = plan.polynomial_size
+    d8, rhs, s = _step_buffers(plan, acc.shape[1], acc.device,
+                               bsk_rings.shape[1])
     digits = rotdig if plan.bits == 32 else rotdig64
     acc = acc.clone()
     for i in range(a_hats.shape[0]):
         digits(plan, acc, a_hats[i], out=d8)
-        build_tables(bsk_rings[i], plan.polynomial_size, plan.limb_drop,
-                     plan.n_words, out=rhs)
-        acc += _toeplitz_matmul(plan, d8, rhs, out=s)
+        build_tables(bsk_rings[i], n, plan.limb_drop, plan.n_words, out=rhs)
+        acc += recombine_limb_planes(
+            plan, step_dot(d8, rhs, s, block0 * n, reduce))
     return acc
 
 
-def _deferred_scan(plan: MxuPlan, bsk_rings, acc, a_hats):
+def _deferred_scan(plan: MxuPlan, bsk_rings, acc, a_hats, block0: int = 0,
+                   reduce=None):
     """The dot-first form: step j's dot output S is recombined inside step
     j+1's digit kernel (K3). A first kernel call with S = 0 applies a_hat_0;
     step j then consumes rings_j and a_hat_{j+1}, and the last step's dummy
-    a_hat = 0 rotates by X^0 (its digits are discarded). u32 torus only."""
-    d8, rhs, s = _step_buffers(plan, acc.shape[1], acc.device)
+    a_hat = 0 rotates by X^0 (its digits are discarded). u32 torus only.
+    block0 / reduce as in _plain_scan."""
+    n = plan.polynomial_size
+    d8, rhs, s = _step_buffers(plan, acc.shape[1], acc.device,
+                               bsk_rings.shape[1])
     acc = acc.clone()
     rotdig_recombine(plan, s, acc, a_hats[0], acc_out=acc, d8_out=d8)
     a_next = torch.cat([a_hats[1:], torch.zeros_like(a_hats[:1])], dim=0)
     for j in range(a_hats.shape[0]):
-        build_tables(bsk_rings[j], plan.polynomial_size, plan.limb_drop,
-                     out=rhs)
-        int_mm(d8, rhs, out=s)
-        rotdig_recombine(plan, s, acc, a_next[j], acc_out=acc, d8_out=d8)
+        build_tables(bsk_rings[j], n, plan.limb_drop, out=rhs)
+        rotdig_recombine(plan, step_dot(d8, rhs, s, block0 * n, reduce), acc,
+                         a_next[j], acc_out=acc, d8_out=d8)
     return acc
 
 
@@ -728,6 +756,17 @@ def _fused_scan(plan: MxuPlan, bsk_rings, acc, a_hats):
         rotdig(plan, acc, a_hats[i], out=d8)
         fused_external_product_acc(plan, acc, d8, bsk_rings[i], out=acc)
     return acc
+
+
+def scan_for(plan: MxuPlan, batch: int, fused: bool = False):
+    """The CMux loop of a blind rotation: K8's with fused, else the
+    dot-first loop where auto_defer takes the batch (u32), else the plain
+    one. The tensor-parallel pipeline (parallel/mesh.py) runs the same."""
+    if fused:
+        return _fused_scan
+    if plan.bits == 32 and auto_defer(plan, batch):
+        return _deferred_scan
+    return _plain_scan
 
 
 def blind_rotate_mxu(cfg: ServerConfig, bsk_rings: torch.Tensor,
@@ -755,21 +794,8 @@ def blind_rotate_mxu(cfg: ServerConfig, bsk_rings: torch.Tensor,
     if lwe.dtype != carrier(plan.bits) or lut.dtype != lwe.dtype:
         raise TypeError(f"u{plan.bits} torus tensors are {carrier(plan.bits)}")
     lead = lwe.shape[:-1]
-    lwe_flat = lwe.reshape(-1, n_lwe + 1)
-    b = lwe_flat.shape[0]
-    b_hat = pbs_modulus_switch(lwe_flat[:, -1], N, ms_offset, lut_count_log)
-    a_hats = pbs_modulus_switch(
-        lwe_flat[:, :-1], N, ms_offset, lut_count_log).T.contiguous()  # [n, B]
-    lut_b = lut.reshape(-1, ks1, N).expand(b, ks1, N)
-    acc = polynomial.negacyclic_monomial_div(
-        lut_b.permute(1, 0, 2), b_hat[None, :]).contiguous()      # [k+1, B, N]
-    if fused:
-        scan = _fused_scan
-    elif plan.bits == 32 and auto_defer(plan, b):
-        scan = _deferred_scan
-    else:
-        scan = _plain_scan
-    acc = scan(plan, bsk_rings, acc, a_hats)
+    acc, a_hats = rotation_start(lut, lwe, N, ms_offset, lut_count_log)
+    acc = scan_for(plan, acc.shape[1], fused)(plan, bsk_rings, acc, a_hats)
     return acc.permute(1, 0, 2).reshape(lead + (ks1, N))
 
 

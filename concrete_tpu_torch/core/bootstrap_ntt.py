@@ -48,7 +48,7 @@ from . import checks
 from . import lwe as lwe_ops
 from .bootstrap import (
     ServerConfig,
-    pbs_modulus_switch,
+    rotation_start,
     sample_extract,
     sample_extract_nth,
 )
@@ -60,27 +60,36 @@ from .bootstrap_mxu import _check, _on_cpu
 
 
 def _external_product_stacked(cfg: ServerConfig, sp: ntt.StackedNttPlans,
-                              ggsw_ntt: torch.Tensor,
-                              glwe_pbn: torch.Tensor) -> torch.Tensor:
+                              ggsw_ntt: torch.Tensor, glwe_pbn: torch.Tensor,
+                              level0: int = 0, reduce=None) -> torch.Tensor:
     """The external product with every CRT prime in one tensor.
 
     ggsw_ntt [P, l, k+1, k+1, N] Montgomery spectra (int32 or int64);
     glwe_pbn [k+1, B, N] in the torus carrier. Returns [k+1, B, N] in the
-    carrier, exact (fourier/mod.rs:463-645)."""
+    carrier, exact (fourier/mod.rs:463-645).
+
+    A tensor-parallel rank (parallel/mesh.py) passes the levels it holds,
+    ggsw_ntt [P, l', ...] from decomposition level `level0` on, and
+    `reduce`, which sums the partial MAC [P, k+1, B, N] over the ranks mod
+    each prime before the inverse transform."""
     digits = decomposition.decompose_rounded(glwe_pbn, cfg.pbs_base_log,
                                              cfg.pbs_level)
-    digits = digits.movedim(-1, 0).to(torch.int64)[None]   # [1, l, k+1, B, N]
+    levels = ggsw_ntt.shape[1]
+    digits = digits.movedim(-1, 0)[level0:level0 + levels]
+    digits = digits.to(torch.int64)[None]                  # [1, l', k+1, B, N]
     p_bc = sp._bc(sp.p, digits)                            # [P, 1, 1, 1, 1]
-    dres = torch.where(digits < 0, digits + p_bc, digits)  # [P, l, k+1, B, N]
+    dres = torch.where(digits < 0, digits + p_bc, digits)  # [P, l', k+1, B, N]
     dspec = ntt.forward_stacked(sp, dres)
     g_all = ggsw_ntt.to(torch.int64)
     acc = None
-    for lev in range(cfg.pbs_level):
+    for lev in range(levels):
         for i in range(cfg.glwe_size):
             d = dspec[:, lev, i]                         # [P, B, N]
             g = g_all[:, lev, i]                         # [P, k+1, N]
             prod = sp.mont_mul(d[:, None], g[:, :, None, :])  # [P, k+1, B, N]
             acc = prod if acc is None else sp.add(acc, prod)
+    if reduce is not None:
+        acc = reduce(acc)
     residues = ntt.inverse_stacked(sp, acc)
     return cfg.crt_context.combine_to_torus(list(residues))
 
@@ -291,14 +300,7 @@ def blind_rotate(cfg: ServerConfig, bsk_ntt: torch.Tensor, lut: torch.Tensor,
     if lwe.dtype != carrier(cfg.bits) or lut.dtype != lwe.dtype:
         raise TypeError(f"u{cfg.bits} torus tensors are {carrier(cfg.bits)}")
     lead = lwe.shape[:-1]
-    lwe_flat = lwe.reshape(-1, n_lwe + 1)
-    b = lwe_flat.shape[0]
-    b_hat = pbs_modulus_switch(lwe_flat[:, -1], N, ms_offset, lut_count_log)
-    a_hats = pbs_modulus_switch(
-        lwe_flat[:, :-1], N, ms_offset, lut_count_log).T.contiguous()  # [n, B]
-    lut_b = lut.reshape(-1, ks1, N).expand(b, ks1, N)
-    acc = polynomial.negacyclic_monomial_div(
-        lut_b.transpose(0, 1), b_hat[None, :]).contiguous()       # [k+1, B, N]
+    acc, a_hats = rotation_start(lut, lwe, N, ms_offset, lut_count_log)
     if kernel_applies(cfg):
         spare = torch.empty_like(acc)
         for i in range(n_lwe):

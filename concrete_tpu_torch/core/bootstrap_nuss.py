@@ -49,14 +49,14 @@ import dataclasses
 
 import torch
 
-from ..math import decomposition, nussbaumer as nb, polynomial
+from ..math import decomposition, nussbaumer as nb
 from ..ops import _cuda
 from ..torus import as_torus, carrier, lshr
 from . import bootstrap_mxu as bsx
 from . import lwe as lwe_ops
 from .bootstrap import (
     ServerConfig,
-    pbs_modulus_switch,
+    rotation_start,
     sample_extract,
     sample_extract_nth,
 )
@@ -643,28 +643,52 @@ def reset_launch_counts():
 # ---------------------------------------------------------------------------
 
 
-def _step_buffers(plan: NussPlan, b: int, device):
-    """The per-step d8 / RHS / S buffers, allocated once per rotation."""
+def _step_buffers(plan: NussPlan, b: int, device, blocks: int | None = None):
+    """The per-step d8 / RHS / S buffers, allocated once per rotation; the
+    RHS holds `blocks` row blocks of each frequency (a tensor-parallel
+    rank's) or all R'."""
     rows = plan.row_blocks * plan.m
     cols = plan.glwe_size * plan.limbs_used * plan.m
     d8 = torch.empty((plan.two_l, b, rows), dtype=torch.int8, device=device)
-    rhs = bsx.table_buffer(rows, cols, plan.two_l, device=device)
+    rhs = bsx.table_buffer(
+        (plan.row_blocks if blocks is None else blocks) * plan.m, cols,
+        plan.two_l, device=device)
     s = torch.empty((plan.two_l, b, cols), dtype=torch.int32, device=device)
     return d8, rhs, s
 
 
-def _dot_recombine_nuss(plan: NussPlan, rings, d8, rhs=None, s=None):
+def _dot_recombine_nuss(plan: NussPlan, rings, d8, rhs=None, s=None,
+                        block0: int = 0, reduce=None):
     """Per-frequency table build (K1) + one int8 product per frequency +
-    recombine (K5 / K6): the tail of one CMux given d8 [2L, B, R'*M]."""
+    recombine (K5 / K6): the tail of one CMux given d8 [2L, B, R'*M]. A
+    tensor-parallel rank passes its ring blocks (R'/tp of each frequency,
+    from block `block0` on) and `reduce`, which sums the partial products
+    over its tp group before the recombine (bootstrap_mxu.step_dot)."""
     rhs = bsx.build_tables(rings, plan.m, 0, plan.n_words, plan.limb_hi_drop,
                            groups=plan.two_l, out=rhs)
     if s is None:
         s = torch.empty((plan.two_l, d8.shape[1], rhs.shape[-1]),
                         dtype=torch.int32, device=d8.device)
-    for z in range(plan.two_l):
-        bsx.int_mm(d8[z], rhs[z], out=s[z])
+    s = bsx.step_dot(d8, rhs, s, block0 * plan.m, reduce)
     recombine = recombine_inv if plan.bits == 32 else recombine_inv64
     return recombine(plan, s)
+
+
+def rotate_nuss(plan: NussPlan, bsk_rings, acc, a_hats, block0: int = 0,
+                reduce=None):
+    """The CMux chain from the start accumulator acc [k+1, B, N], which
+    stays chunk-major [k+1, B, L, M] for the whole loop. bsk_rings [n,
+    2L*R'', (k+1)*n_words, 2M] holds R'' = R' row blocks of each frequency,
+    or a tensor-parallel rank's R'/tp from block `block0` on, whose partial
+    products `reduce` sums (_dot_recombine_nuss)."""
+    acc = nb.chunk(acc, plan.l)[..., :plan.l, :].contiguous()
+    d8, rhs, s = _step_buffers(plan, acc.shape[1], acc.device,
+                               bsk_rings.shape[1] // plan.two_l)
+    for i in range(a_hats.shape[0]):
+        rotdig_fwd_nuss(plan, acc, a_hats[i], out=d8)
+        acc += _dot_recombine_nuss(plan, bsk_rings[i], d8, rhs, s, block0,
+                                   reduce)
+    return nb.unchunk(acc, plan.l)
 
 
 def external_product_nuss(cfg: ServerConfig, rings, glwe, l: int | None = None):
@@ -700,20 +724,8 @@ def blind_rotate_nuss(cfg: ServerConfig, bsk_rings: torch.Tensor,
     if lwe.dtype != carrier(plan.bits) or lut.dtype != lwe.dtype:
         raise TypeError(f"u{plan.bits} torus tensors are {carrier(plan.bits)}")
     lead = lwe.shape[:-1]
-    lwe_flat = lwe.reshape(-1, n_lwe + 1)
-    b = lwe_flat.shape[0]
-    b_hat = pbs_modulus_switch(lwe_flat[:, -1], N, ms_offset, lut_count_log)
-    a_hats = pbs_modulus_switch(
-        lwe_flat[:, :-1], N, ms_offset, lut_count_log).T.contiguous()  # [n, B]
-    lut_b = lut.reshape(-1, ks1, N).expand(b, ks1, N)
-    acc = polynomial.negacyclic_monomial_div(lut_b.transpose(0, 1),
-                                             b_hat[None, :])
-    acc = nb.chunk(acc, plan.l)[..., :plan.l, :].contiguous()  # [k+1, B, L, M]
-    d8, rhs, s = _step_buffers(plan, b, acc.device)
-    for i in range(n_lwe):
-        rotdig_fwd_nuss(plan, acc, a_hats[i], out=d8)
-        acc += _dot_recombine_nuss(plan, bsk_rings[i], d8, rhs, s)
-    out = nb.unchunk(acc, plan.l)
+    acc, a_hats = rotation_start(lut, lwe, N, ms_offset, lut_count_log)
+    out = rotate_nuss(plan, bsk_rings, acc, a_hats)
     return out.transpose(0, 1).reshape(lead + (ks1, N))
 
 

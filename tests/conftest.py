@@ -22,3 +22,5 @@ jax.config.update("jax_platforms", "cpu")
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped elsewhere")
+    config.addinivalue_line(
+        "markers", "slow: multi-process runs left out of the tier-1 run")

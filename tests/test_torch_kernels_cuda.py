@@ -589,3 +589,33 @@ def test_external_product_and_cmux_mxu_on_gpu_match_cpu(dev, bits, n, k, bl,
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), bsx.external_product_mxu(cfg, rings, ct1))
     assert torch.equal(got_cmux.cpu(), bsx.cmux_mxu(cfg, rings, ct0, ct1))
+
+
+def test_gate_pipeline_dp_tp_mxu_on_a_world_of_one_nccl(dev, tmp_path):
+    """parallel/mesh.py on the card: a one-rank NCCL group (the tp loop is
+    the single-device one, with no collective to run in a group of one),
+    the output the unsharded call's bit for bit."""
+    import torch.distributed as dist
+
+    from concrete_tpu_torch.parallel import mesh as pmesh
+
+    tiny = BooleanParameters(16, 1, 128, StandardDev(2.0 ** -20),
+                             StandardDev(2.0 ** -25), 8, 2, 4, 3)
+    cks, sks = boolean.gen_keys(tiny, secret_seed=1, mask_seed=2, noise_seed=3,
+                                device=dev)
+    rng = np.random.default_rng(4)
+    a, b = (rng.integers(0, 2, size=64).astype(bool) for _ in range(2))
+    lin = (torus.from_numpy(cks.encrypt(a, mask_seed=5, noise_seed=6), dev)
+           + torus.from_numpy(cks.encrypt(b, mask_seed=7, noise_seed=8), dev))
+    lin[:, -1] -= 1 << 29                                        # AND
+    args = (sks.bsk_mxu, sks.ksk8, sks._lut(), lin)
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(tmp_path / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh(1, 1, "cuda")
+        got = pmesh.gate_pipeline_dp_tp_mxu(sks.cfg, mesh)(*args)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, bsx.bootstrap_keyswitch_mxu(sks.cfg, *args))
+    np.testing.assert_array_equal(cks.decrypt(got), a & b)

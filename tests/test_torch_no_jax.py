@@ -1,6 +1,8 @@
 """The port must run where JAX is absent: importing every module of
-concrete_tpu_torch, chip_smoke.py and the kernel sweeps (tools/k*_sweep.py)
-loads neither jax nor concrete_tpu."""
+concrete_tpu_torch (parallel/ and examples/ included), chip_smoke.py and the
+kernel sweeps (tools/k*_sweep.py) loads neither jax nor concrete_tpu, and
+has no side effect: nothing printed, no process started, no process group
+joined."""
 
 import subprocess
 import sys
@@ -9,12 +11,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 PROBE = """
-import importlib, pkgutil, sys
+import contextlib, importlib, io, multiprocessing, pkgutil, sys
+import torch.distributed as dist
 import concrete_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(concrete_tpu_torch.__path__,
                                                prefix="concrete_tpu_torch.")]
-for name in names:
-    importlib.import_module(name)
+printed = io.StringIO()
+with contextlib.redirect_stdout(printed):
+    for name in names:
+        importlib.import_module(name)
+assert not printed.getvalue(), printed.getvalue()
+assert not multiprocessing.active_children()
+assert not dist.is_initialized()
 import chip_smoke
 import importlib.util, pathlib
 for path in sorted(pathlib.Path("tools").glob("k*_sweep.py")):
@@ -24,7 +32,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "concrete_tpu" or m.startswith("concrete_tpu."))
 print(len(names), bad)
-assert len(names) >= 15, names
+assert len(names) >= 61, names
 assert not bad, bad
 """
 
