@@ -13,17 +13,30 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           device times (CUDA graph replay between CUDA events), the least
           time the card could take for the same work and the share of it
           reached (K8 also its T MAC/s and share of the int8 tensor rate).
+  Every gate call of phases B, D, E and F and every jit_* call of C, D
+  and E replays a captured CUDA graph (ops/graphs.py; ServerKey captures
+  one per (gate, padded tier) at warmup). Each is held, bit for bit, to
+  the eager call on the same padded inputs (EagerGates: the same
+  pipelines with no graph), and each replay's launches, counted over the
+  replays alone, to an eager call's, in total and by shape key. Warmup
+  logs its seconds per (gate, tier), each graph's run / capture /
+  instantiation seconds and the memory the graphs keep (memory_reserved
+  before and after); timed cells log the median of 5 replays beside the
+  median of 5 eager calls, taken in turn, and one profiled call of each
+  with the replay's time between two CUDA events.
   B       a boolean-gate server at full width (u32 torus) on the toeplitz
           backend, named (backend="mxu"; "auto" resolves to ntt on the u32
           torus, logged per preset): for TPU128,
           DEFAULT and TFHE_LIB parameters, key generation from fixed seeds,
-          warmup of the batch tiers, then requests of mixed sizes through
-          AND, XOR, NAND and MUX, every row decrypted against its truth
-          table; a TFHE_LIB fast-mode key (levels=2) through AND and XOR;
+          the graphs of AND, XOR, NAND and MUX at the batch tiers, then
+          requests of mixed sizes through them, every row decrypted
+          against its truth table; at TPU128 the graphs of two tiers
+          replayed in another order than captured, fresh ciphertexts each
+          call; a TFHE_LIB fast-mode key (levels=2) through AND and XOR;
           32 rows of one TPU128 AND request recomputed through the port on
           the CPU must match the card bit for bit; every u32 kernel's launch
-          count over this phase must be > 0; the median time of 5 gate calls
-          per (parameters, tier), and one profiled AND per preset at B=2048
+          count over the replays must be > 0; the AND's medians per
+          (parameters, tier), and one profiled AND per preset at B=2048
           with the int8 GEMM's TOP/s.
   C       the high-level API at the full width of examples/int4_lut.py (u64
           torus: LWE128_630, RLWE128_1024_1, PBS base_log 7 level 3, KSK
@@ -32,10 +45,13 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           keyswitched back to the small key; one multi-LUT call with two
           functions; every PBS output row must decode right under the big
           key, and the keyswitched rows must match the noise model (phase
-          std and wrong-row rate, see phase_c); the first 16 CMux steps for
-          32 rows and 64 keyswitched rows recomputed on the CPU must match
-          the card bit for bit; build_tables and rotdig64 must launch; the
-          median time of 5 PBS calls (exact and fast) and of a keyswitch.
+          std and wrong-row rate, see phase_c); the same PBS + keyswitch
+          through jit_bootstrap_keyswitch_mxu (K4 + K1 in its replays),
+          equal to the eager call and to the high-level rows; the first 16
+          CMux steps for 32 rows and 64 keyswitched rows recomputed on the
+          CPU must match the card bit for bit; build_tables and rotdig64
+          must launch; the median time of 5 PBS calls (exact and fast) and
+          of a keyswitch.
   D       the Nussbaumer backend (N > 4096 and any N by request): AND and
           XOR on a backend="nuss" twin of a TFHE_LIB key, 2048 rows, every
           row on its truth table and equal to the mxu backend's; the int4
@@ -44,25 +60,27 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           plus one multi-LUT call, every PBS row decoded under the big key;
           the JAX suite's engine rows (benchmarks/suite.py "nuss": n=100,
           k=1, base_log 2, level 3, B=256, N in {8192, 16384} x {u32, u64})
-          with key preparation on the card, the median of 5 PBS calls and
-          one profiled call each; the u32 N=8192 cell once more on
-          backend="ntt" (K9), equal to nuss, its median beside nuss's; the
-          first 2 CMux steps of 8 rows of the u32 N=8192 cell recomputed on
-          the CPU must match the card; K1 and K5-K7 must launch.
+          through jit_bootstrap_keyswitch_nuss, with key preparation on the
+          card and one profiled call each; the u32 N=8192 cell once more
+          through jit_bootstrap_keyswitch (backend ntt, K9), equal to nuss;
+          the first 2 CMux steps of 8 rows of the u32 N=8192 cell recomputed
+          on the CPU must match the card; K1 and K5-K7 must launch.
   E       the exact-NTT backend and the fused toeplitz step: backend="ntt"
           twins of the TPU128, DEFAULT and TFHE_LIB keys (K9 every CMux
           step) through AND, XOR, NAND and MUX requests of 100 and 2048
           rows, every row on its truth table, AND equal to the mxu
-          backend's bit for bit, the median of 5 AND calls at B=2048 beside
-          the mxu backend's; a TFHE_LIB fast-mode ntt twin (levels=2)
-          through AND; 16 rows of a TPU128 ntt AND recomputed on the CPU;
+          backend's bit for bit, the AND's medians at B=2048 beside the mxu
+          backend's; jit_bootstrap_keyswitch on the TPU128 twin; a TFHE_LIB
+          fast-mode ntt twin (levels=2) through AND; 16 rows of a TPU128
+          ntt AND recomputed on the CPU;
           the int4 LUT of phase C through LWEBSK(backend="ntt") (u64, three
           primes: the torch composition) at B=256, PBS and multi-LUT, every
           row decoded under the big key, equal to the mxu backend, timed
-          once; bootstrap_keyswitch_mxu(fused=True) (K8 every step) on the
-          three gate keys at B=2048, equal to fused=False, medians of 3
-          beside the unfused ones; one profiled TPU128 call each of the ntt
-          AND and the fused AND. K8 and K9 must launch.
+          once; bootstrap_keyswitch_mxu(fused=True) (K8 every step, eager:
+          no graph reaches it) on the three gate keys at B=2048, equal to
+          fused=False, medians of 3 beside the unfused ones; one profiled
+          TPU128 call each of the ntt AND and the fused AND. K8 and K9 must
+          launch.
   F       the client side and the 8-bit adder (examples/adder_circuit.py,
           BASELINE config 5): the DEFAULT and TFHE_LIB boolean keys and the
           int4 high-level keys of phase C's shapes made from fixed seeds on
@@ -70,16 +88,17 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           logged; a numpy AES call fails the phase), with set-up seconds by
           part (the BSK's fork tree, mask read, noise draw, device
           multisum, key preparation); 2048 random 8-bit pairs through
-          circuits.encrypt_uint; the ripple-carry adder on the DEFAULT key's
-          auto backend (ntt: K9 every CMux step) and on its mxu twin (K1,
-          K2, and K3 for the MUX's 4096 rows), every row equal to
-          (a + b) mod 256 with the right carry, the two backends bit
-          identical; the sha256 of every key, of the encrypted planes, of
-          the sums and carry of rows 0-31 and of a base_log 8 keyswitch of
-          64 rows equal to concrete_tpu's (DIGESTS, from
-          tools/phase_f_reference.py), that keyswitch equal to its CPU
-          recomputation; the median of 3 adds per backend (adds/s and
-          gates/s) and one profiled add. K1, K2, K3 and K9 must launch.
+          circuits.encrypt_uint; the ripple-carry adder, 23 replayed gate
+          calls, on the DEFAULT key's auto backend (ntt: K9 every CMux
+          step) and on its mxu twin (K1, K2, and K3 for the MUX's 4096
+          rows), every row equal to (a + b) mod 256 with the right carry,
+          the two backends bit identical; the sha256 of every key, of the
+          encrypted planes, of the sums and carry of rows 0-31 and of a
+          base_log 8 keyswitch of 64 rows equal to concrete_tpu's (DIGESTS,
+          from tools/phase_f_reference.py), that keyswitch equal to its CPU
+          recomputation; the median of 3 adds per backend, replayed and
+          eager (adds/s and gates/s) and one profiled add. K1, K2, K3 and
+          K9 must launch.
   G       the conformance harness, VectorRLWE and the design model: the
           CUDA probe (diagnose.main(): versions, device init, the kernels
           built and one K1 launch held to its plain version) returns 0; the
@@ -157,6 +176,7 @@ import torch.distributed as dist
 from concrete_tpu_torch import boolean, design, diagnose, fixtures, highlevel as hl
 from concrete_tpu_torch import examples, native, torus
 from concrete_tpu_torch.boolean import circuits
+from concrete_tpu_torch.boolean import server_key as sk_mod
 from concrete_tpu_torch.core import bootstrap as bs
 from concrete_tpu_torch.core import bootstrap_mxu as bsx
 from concrete_tpu_torch.core import bootstrap_ntt as bsntt
@@ -172,6 +192,7 @@ from concrete_tpu_torch.parallel import mesh as pmesh, multihost
 from concrete_tpu_torch.profiling import (
     INT8_TENSOR_OPS_PER_S,
     bound_ms,
+    event_ms,
     int_ops_s,
     median_s,
     mxu_gemm_ops,
@@ -194,6 +215,7 @@ TIERS = {"TPU128": [2048, 8192], "DEFAULT": [2048], "TFHE_LIB": [2048]}
 REQUESTS = {"TPU128": [100, 2048, 5000], "DEFAULT": [100, 2048],
             "TFHE_LIB": [100, 2048]}
 GATES = ("and_", "xor", "nand", "mux")
+GATE_NAMES = ("and", "xor", "nand")          # ServerKey.warmup's names
 MXU_SOURCE = "concrete_tpu_torch/csrc/mxu_kernels.cu"
 NUSS_SOURCE = "concrete_tpu_torch/csrc/nuss_kernels.cu"
 FUSED_SOURCE = "concrete_tpu_torch/csrc/fused_kernels.cu"
@@ -252,6 +274,7 @@ NUSS_CPU_STEPS, NUSS_CPU_ROWS = 2, 8
 NUSS_GATE_ROWS = 2048
 # phase E
 NTT_REQUESTS = (100, 2048)
+NTT_TIER = 2048
 NTT_CPU_ROWS = 16
 INT4_NTT_BATCH = 256
 
@@ -304,6 +327,9 @@ DIGESTS_G = {
 # phase H: parallel/ on one card (H1 on NCCL, H2 two processes on gloo)
 PHASE_H = {"batch": 2048, "reps": 3, "h2_processes": 2, "h2_batch": 256,
            "seed": 8000}
+# the level-split ntt composition (no kernel, ~12 s a call on the H100) is
+# timed once, the other pipelines PHASE_H["reps"] times
+H1_REPS = {"gate_pipeline_dp_tp (ntt, level split)": 1}
 _COUNTED = (bsx, bsn, bsntt)
 # phase -> {kernel: {shape key: launches}} of its main path (read_launches),
 # and phase A's rows that name a shape key (kernel, label, key, ms, bound)
@@ -371,6 +397,124 @@ def log_profile(label: str, fn, card, gemm_ops=None, phase="profile"):
     log(phase=phase, cell=label, **stats,
         host_ms=stats["wall_ms"] - stats["device_ms"], card=card)
     return box["out"]
+
+
+class EagerGates:
+    """A ServerKey's gates run eagerly: the pipelines its graphs hold
+    (server_key._gate_pipeline, _mux_pipeline), on the same keys and the
+    same padded inputs (the key's _padded_call), with no graph. What every
+    replayed gate call is held to."""
+
+    def __init__(self, sks):
+        self.sks, self.device = sks, sks.device
+
+    def _call(self, name, *cts):
+        s, backend = self.sks, self.sks.resolved_backend()
+        fn = (sk_mod._mux_pipeline(s.cfg, backend) if name == "mux"
+              else sk_mod._gate_pipeline(s.cfg, backend, name))
+        keys = (s._bootstrap_keys(), s.ksk8, s._lut())
+        return s._padded_call(lambda *x: fn(*keys, *x), *cts)
+
+    def and_(self, a, b):
+        return self._call("and", a, b)
+
+    def xor(self, a, b):
+        return self._call("xor", a, b)
+
+    def nand(self, a, b):
+        return self._call("nand", a, b)
+
+    def mux(self, c, t, e):
+        return self._call("mux", c, t, e)
+
+
+def twin(sks, backend):
+    """A twin of a server key on another backend, with graphs of its own
+    (dataclasses.replace alone would share the parent's graph cache)."""
+    return dataclasses.replace(sks, backend=backend, **sk_mod._fresh_graphs())
+
+
+def shapes_now() -> dict:
+    return {k: v for mod in _COUNTED for k, v in mod.shape_counts().items()
+            if v}
+
+
+def replay_vs_eager(label, path, total, replay, eager, must=()):
+    """One replayed call and one eager call on the same inputs, each in a
+    window of the launch counters of its own: the outputs must be equal
+    bit for bit, the launches equal in total and by shape key, and the
+    kernels `must` launched in the replay. The replay's launches are added
+    to `total` and to PATH_SHAPES[path]. Returns the replayed output."""
+    reset_launch_counts()
+    got = replay()
+    torch.cuda.synchronize()
+    shapes = shapes_now()
+    counts = add_launches(path, total)
+    reset_launch_counts()
+    want = eager()
+    torch.cuda.synchronize()
+    if launch_counts() != counts or shapes_now() != shapes:
+        raise AssertionError(f"{label}: a replay counts {counts}, an eager "
+                             f"call {launch_counts()}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: the replay differs from the eager call")
+    missing = [k for k in must if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: the replay never launched {missing}")
+    return got
+
+
+def in_turn(replay, eager, reps=5):
+    """Median seconds of `reps` replayed and `reps` eager calls, taken in
+    turn (host drift falls on both)."""
+    r, e = [], []
+    for _ in range(reps):
+        e.append(timed(eager)[0])
+        r.append(timed(replay)[0])
+    return statistics.median(r), statistics.median(e)
+
+
+def log_in_turn(phase, label, rows, replay, eager, card, reps=5, **more):
+    """in_turn's medians logged per call and per row; returns the replay's."""
+    replay_s, eager_s = in_turn(replay, eager, reps)
+    log(phase=phase, cell=label, rows=rows, reps=reps,
+        ms_per_call=replay_s * 1e3, eager_ms_per_call=eager_s * 1e3,
+        per_s=rows / replay_s, eager_per_s=rows / eager_s, **more, card=card)
+    return replay_s
+
+
+def profile_both(label, replay, eager, card, gemm_ops=None, phase="profile"):
+    """One profiled eager call and one profiled replay, and the replay's
+    device time between two CUDA events."""
+    log_profile(f"{label} eager", eager, card, gemm_ops, phase)
+    log_profile(f"{label} replay", replay, card, gemm_ops, phase)
+    log(phase=phase, cell=f"{label} replay", event_ms=event_ms(replay),
+        eager_event_ms=event_ms(eager), card=card)
+
+
+def warm_graphs(phase, label, sks, tiers, gates=("and",), mux=False, card=""):
+    """sks.warmup (the graphs of each gate and tier) with what it costs: its
+    seconds per (gate, tier), each graph's run / capture / instantiation
+    seconds and launches a replay, and the memory it keeps
+    (torch.cuda.memory_reserved before and after, caches emptied)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    warm = sks.warmup(tiers, gates=gates, mux=mux)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(phase=phase, params=label, backend=sks.resolved_backend(),
+        warmup_s={f"{g} B={t}": v for (g, t), v in warm.items()},
+        warmup_s_total=sum(warm.values()),
+        pool_bytes=torch.cuda.memory_reserved() - before,
+        graphs=[dict(pipeline=c.name, **g) for c in sks._graphs.values()
+                for g in c.captures()], card=card)
+    return warm
+
+
+def log_jit(phase, label, jit, card):
+    log(phase=phase, cell=label, pipeline=jit.name, graphs=jit.captures(),
+        card=card)
 
 
 def max_abs_err(got, want) -> int:
@@ -687,8 +831,10 @@ def call_gate(sks, gate, ca, cb, cc):
 
 
 def phase_b(dev, card):
-    """The gate server per preset; returns the CPU cross-check inputs."""
-    cpu_check = None
+    """The gate server per preset, every gate call a graph replay held to
+    the eager call; returns the CPU cross-check inputs and the launches of
+    the replays."""
+    cpu_check, total = None, {}
     for name, params in PRESETS.items():
         t0 = time.perf_counter()
         cks, sks = boolean.gen_keys(params, secret_seed=11, mask_seed=12,
@@ -697,19 +843,22 @@ def phase_b(dev, card):
         # phase B measures the toeplitz path, which "auto" no longer picks
         # on the u32 torus (phase E runs the ntt twin it resolves to)
         auto = sks.resolved_backend()
-        sks = dataclasses.replace(sks, backend="mxu")
+        sks = twin(sks, "mxu")
         t0 = time.perf_counter()
         sks.bsk_mxu, sks.ksk8  # noqa: B018 - evaluation keys onto the card
         prep_s = time.perf_counter() - t0
-        warm = sks.warmup(TIERS[name])
         log(phase="B", params=name, auto_backend=auto,
             backend=sks.resolved_backend(), keygen_s=keygen_s,
-            key_prep_s=prep_s,
-            warmup_s={f"{gate} B={tier}": s for (gate, tier), s in warm.items()})
+            key_prep_s=prep_s)
+        warm_graphs("B", name, sks, TIERS[name], GATE_NAMES, True, card)
+        eager = EagerGates(sks)
         for size in REQUESTS[name]:
             (a, b, c), (ca, cb, cc) = encrypt_bools(cks, size, 1000 + size)
             for gate in GATES:
-                out = call_gate(sks, gate, ca, cb, cc)
+                out = replay_vs_eager(
+                    f"{name} {gate} B={size}", "B", total,
+                    lambda gate=gate: call_gate(sks, gate, ca, cb, cc),
+                    lambda gate=gate: call_gate(eager, gate, ca, cb, cc))
                 if out.device.type != dev.type or out.shape != ca.shape:
                     raise AssertionError(f"{name} {gate}: bad output "
                                          f"{out.device} {tuple(out.shape)}")
@@ -721,44 +870,74 @@ def phase_b(dev, card):
                     cpu_check = (sks, ca[:CPU_ROWS], cb[:CPU_ROWS],
                                  out[:CPU_ROWS].cpu())
             log(phase="B", params=name, request_rows=size, gates=list(GATES),
-                truth_tables="ok")
+                truth_tables="ok", replay_equal_to_eager=True)
+        if name == "TPU128":
+            shuffled_replays(cks, sks, eager, total)
         for tier in TIERS[name]:
             _, (ca, cb, _) = encrypt_bools(cks, tier, 7)
             ca, cb = torus.from_numpy(ca, dev), torus.from_numpy(cb, dev)
-            med = median_s(lambda: sks.and_(ca, cb))
             plan = bsx.MxuPlan.from_config(sks.cfg)
-            log(phase="B", params=name, tier=tier, gate="and_",
-                ms_per_call=med * 1e3, gates_per_s=tier / med,
-                deferred=bsx.auto_defer(plan, tier), card=card)
+            log_in_turn("B", f"{name} mxu AND", tier, lambda: sks.and_(ca, cb),
+                        lambda: eager.and_(ca, cb), card,
+                        deferred=bsx.auto_defer(plan, tier))
             if tier == 2048:
-                log_profile(f"{name} mxu AND B={tier}",
-                            lambda: sks.and_(ca, cb), card,
-                            gemm_ops=mxu_gemm_ops(plan, tier))
+                profile_both(f"{name} mxu AND B={tier}",
+                             lambda: sks.and_(ca, cb), lambda: eager.and_(ca, cb),
+                             card, gemm_ops=mxu_gemm_ops(plan, tier))
         if name == "TFHE_LIB":
-            fast_mode_request(cks, sks, card)
-        del sks
+            fast_mode_request(cks, sks, card, total)
+        del sks, eager
         torch.cuda.empty_cache()
-    return cpu_check
+    return cpu_check, total
 
 
-def fast_mode_request(cks, sks, card):
+# the new check of phase B: the TPU128 key's graphs, captured tier by tier
+# in the order (and, xor, nand, mux), replayed in this order
+SHUFFLED = (("mux", 8192), ("and_", 2048), ("xor", 8192), ("mux", 2048),
+            ("and_", 8192), ("xor", 2048))
+
+
+def shuffled_replays(cks, sks, eager, total):
+    """AND, XOR and MUX warmed at two tiers on one key (one memory pool),
+    replayed in an order unlike their capture order, fresh ciphertexts
+    each call: every output equal to the eager call's and to its truth
+    table."""
+    for i, (gate, rows) in enumerate(SHUFFLED):
+        (a, b, c), (ca, cb, cc) = encrypt_bools(cks, rows, 9000 + 10 * i)
+        out = replay_vs_eager(f"shuffled {gate} B={rows}", "B", total,
+                              lambda: call_gate(sks, gate, ca, cb, cc),
+                              lambda: call_gate(eager, gate, ca, cb, cc))
+        if not np.array_equal(cks.decrypt(out), truth(gate, a, b, c)):
+            raise AssertionError(f"shuffled {gate} B={rows}: wrong truth table")
+    log(phase="B", check="replays in another order than captured",
+        capture_order=[f"{g} B={t}" for t in TIERS["TPU128"]
+                       for g in GATE_NAMES + ("mux",)],
+        replay_order=[f"{g} B={t}" for g, t in SHUFFLED],
+        replay_equal_to_eager=True, truth_tables="ok")
+
+
+def fast_mode_request(cks, sks, card, total):
     """One 2048-row request through a fast-mode (levels=2) twin of the
-    TFHE_LIB key, AND and XOR checked on their truth tables, AND timed."""
+    TFHE_LIB key, AND and XOR replayed, each equal to its eager call and
+    its truth table, AND timed beside the eager call."""
     fast = sks.with_fast_mode()
-    fast.warmup([2048])
+    warm_graphs("B", "TFHE_LIB fast (levels=2)", fast, [2048], ("and", "xor"),
+                card=card)
+    eager = EagerGates(fast)
     (a, b, c), (ca, cb, cc) = encrypt_bools(cks, 2048, 3000)
     for gate in ("and_", "xor"):
-        if not np.array_equal(cks.decrypt(call_gate(fast, gate, ca, cb, cc)),
-                              truth(gate, a, b, c)):
+        out = replay_vs_eager(f"TFHE_LIB fast {gate}", "B", total,
+                              lambda gate=gate: call_gate(fast, gate, ca, cb, cc),
+                              lambda gate=gate: call_gate(eager, gate, ca, cb, cc))
+        if not np.array_equal(cks.decrypt(out), truth(gate, a, b, c)):
             raise AssertionError(f"TFHE_LIB fast mode {gate}: wrong truth table")
     ca, cb = torus.from_numpy(ca, sks.device), torus.from_numpy(cb, sks.device)
-    med = median_s(lambda: fast.and_(ca, cb))
-    log(phase="B", params="TFHE_LIB fast (levels=2)", tier=2048,
-        gates=["and_", "xor"], truth_tables="ok", ms_per_call=med * 1e3,
-        gates_per_s=2048 / med, card=card)
-    log_profile("TFHE_LIB fast (levels=2) AND B=2048",
-                lambda: fast.and_(ca, cb), card,
-                gemm_ops=mxu_gemm_ops(bsx.MxuPlan.from_config(fast.cfg), 2048))
+    log_in_turn("B", "TFHE_LIB fast (levels=2) mxu AND", 2048,
+                lambda: fast.and_(ca, cb), lambda: eager.and_(ca, cb), card,
+                gates=["and_", "xor"], truth_tables="ok")
+    profile_both("TFHE_LIB fast (levels=2) AND B=2048", lambda: fast.and_(ca, cb),
+                 lambda: eager.and_(ca, cb), card,
+                 gemm_ops=mxu_gemm_ops(bsx.MxuPlan.from_config(fast.cfg), 2048))
 
 
 def int4_table(x) -> float:
@@ -889,6 +1068,7 @@ def phase_c(dev, card):
         log_profile(f"int4 PBS {label} B={b}",
                     lambda key=key: key.run_bootstrap(acc, cts), card,
                     gemm_ops=mxu_gemm_ops(bsx.MxuPlan.from_config(key.cfg), b))
+    phase_c_jit(bsk, fast, ksk, acc, cts, outs, launches, card)
     big_ct = bsk.run_bootstrap(acc, cts)
     med = median_s(lambda: ksk.run_keyswitch(big_ct))
     log(phase="C", keyswitch=f"{big.dimension}->{sk.dimension}", batch=b,
@@ -918,42 +1098,82 @@ def phase_c(dev, card):
     return launches
 
 
-def nuss_gates(dev, card):
+def phase_c_jit(bsk, fast, ksk, acc, cts, outs, total, card):
+    """jit_bootstrap_keyswitch_mxu at the int4 shape (u64: K4, K1 on two
+    word planes), exact and drop 2: the replay equal to the eager call and
+    to the high-level API's keyswitched rows (the LUT check above), its
+    launches (added to `total`) those of an eager call; the medians of 5
+    in turn."""
+    ks_bl, ks_l = INT4["ks"]
+    b = cts.shape[0]
+    for label, key in (("exact", bsk), ("drop2", fast)):
+        cfg = dataclasses.replace(key.cfg, ks_base_log=ks_bl, ks_level=ks_l)
+        jit = bsx.jit_bootstrap_keyswitch_mxu(cfg)
+        args = (key.bsk_mxu, ksk.limbs, acc, cts)
+        t0 = time.perf_counter()
+        jit(*args)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        log_jit("C", f"int4 jit_bootstrap_keyswitch_mxu {label}", jit, card)
+        got = replay_vs_eager(
+            f"int4 jit {label}", "C", total, lambda: jit(*args),
+            lambda: bsx.bootstrap_keyswitch_mxu(cfg, *args),
+            must=("rotdig64", "build_tables"))
+        if not np.array_equal(torus.to_numpy(got), outs[label][1].data):
+            raise AssertionError(f"int4 jit {label}: differs from the "
+                                 "high-level keyswitched rows")
+        log_in_turn("C", f"int4 PBS + keyswitch {label} (jit)", b,
+                    lambda: jit(*args),
+                    lambda: bsx.bootstrap_keyswitch_mxu(cfg, *args), card,
+                    first_call_s=capture_s, replay_equal_to_eager=True,
+                    equal_to_highlevel=True)
+
+
+def nuss_gates(dev, card, total):
     """D, part 1: a 2048-row request through AND and XOR on a
-    backend="nuss" twin of a TFHE_LIB key (N=1024, L=32, M=32): every row on
-    its truth table and equal to the mxu backend's, bit for bit."""
+    backend="nuss" twin of a TFHE_LIB key (N=1024, L=32, M=32), replayed:
+    every row on its truth table, equal to the eager call and to the mxu
+    backend's, bit for bit; the AND's medians in turn."""
     rows = NUSS_GATE_ROWS
     cks, sks = boolean.gen_keys(PRESETS["TFHE_LIB"], secret_seed=11,
                                 mask_seed=12, noise_seed=13, device=dev)
-    mxu = dataclasses.replace(sks, backend="mxu")
-    nuss = dataclasses.replace(sks, backend="nuss", _warmed_tiers=set())
+    mxu, nuss = twin(sks, "mxu"), twin(sks, "nuss")
     plan = bsn.NussPlan.from_config(nuss.cfg)
     t0 = time.perf_counter()
     nuss.bsk_nuss  # noqa: B018 - key preparation on the card
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
+    warm_graphs("D", "TFHE_LIB nuss", nuss, [rows], ("and", "xor"), card=card)
+    mxu.warmup([rows], gates=("and", "xor"))
+    eager = EagerGates(nuss)
     (a, b, c), (ca, cb, cc) = encrypt_bools(cks, rows, 4000)
     for gate in ("and_", "xor"):
-        got = call_gate(nuss, gate, ca, cb, cc)
+        got = replay_vs_eager(
+            f"TFHE_LIB nuss {gate}", "D", total,
+            lambda gate=gate: call_gate(nuss, gate, ca, cb, cc),
+            lambda gate=gate: call_gate(eager, gate, ca, cb, cc),
+            must=("build_tables", "recombine_inv", "rotdig_fwd_nuss"))
         if not np.array_equal(cks.decrypt(got), truth(gate, a, b, c)):
             raise AssertionError(f"TFHE_LIB nuss {gate}: wrong truth table")
         if not torch.equal(got, call_gate(mxu, gate, ca, cb, cc)):
             raise AssertionError(f"TFHE_LIB nuss {gate} differs from mxu")
     ca, cb = torus.from_numpy(ca, dev), torus.from_numpy(cb, dev)
-    med = median_s(lambda: nuss.and_(ca, cb))
     log(phase="D", params="TFHE_LIB nuss", auto_backend=sks.resolved_backend(),
-        L=plan.l, M=plan.m,
-        n_sub=plan.n_sub, key_prep_s=prep_s, rows=rows, gates=["and_", "xor"],
-        truth_tables="ok", equal_to_mxu=True, ms_per_call=med * 1e3,
-        gates_per_s=rows / med, card=card)
-    log_profile(f"TFHE_LIB nuss AND B={rows}", lambda: nuss.and_(ca, cb), card,
-                gemm_ops=nuss_gemm_ops(plan, rows))
+        L=plan.l, M=plan.m, n_sub=plan.n_sub, key_prep_s=prep_s, rows=rows,
+        gates=["and_", "xor"], truth_tables="ok", equal_to_mxu=True,
+        replay_equal_to_eager=True)
+    log_in_turn("D", "TFHE_LIB nuss AND", rows, lambda: nuss.and_(ca, cb),
+                lambda: eager.and_(ca, cb), card)
+    profile_both(f"TFHE_LIB nuss AND B={rows}", lambda: nuss.and_(ca, cb),
+                 lambda: eager.and_(ca, cb), card,
+                 gemm_ops=nuss_gemm_ops(plan, rows))
 
 
-def nuss_int4(dev, card):
+def nuss_int4(dev, card, total):
     """D, part 2: the int4 LUT of phase C at N = 8192 through the high-level
-    API (auto backend -> nuss), 256 values and one multi-LUT call; every
-    PBS row must decode under the big key."""
+    API (auto backend -> nuss, eager), 256 values and one multi-LUT call;
+    every PBS row must decode under the big key; their launches are added
+    to `total`."""
     (bl, lv), b = INT4["pbs"], INT4_8192["batch"]
     t0 = time.perf_counter()
     sk = hl.LWESecretKey.new(INT4["lwe"], secret_seed=21)
@@ -978,6 +1198,7 @@ def nuss_int4(dev, card):
     xs = np.random.default_rng(35).integers(0, 16, size=b).astype(np.float64)
     want = (3 * xs + 1) % 16
     v = hl.VectorLWE.encode_encrypt(sk, xs, enc, mask_seed=36, noise_seed=37)
+    reset_launch_counts()
     out = v.bootstrap_all_with_function(bsk, int4_table, enc)
     wrong = int(np.sum(np.round(out.decrypt_decode(big)) != want))
     err = (big.inner.decrypt(out.data) - enc.encode_core(want)).view(np.int64)
@@ -991,6 +1212,8 @@ def nuss_int4(dev, card):
     check_multi_lut("int4 N=8192",
                     ct3.bootstrap_with_functions(bsk, MULTI_FNS, enc3), want3,
                     big)
+    torch.cuda.synchronize()
+    add_launches("D", total)
     log(phase="D", cell="int4 N=8192", multi_lut_functions=len(MULTI_FNS),
         rows=b, decoded="ok")
     acc = torus.from_numpy(
@@ -1004,72 +1227,101 @@ def nuss_int4(dev, card):
                 card, gemm_ops=nuss_gemm_ops(plan, b))
 
 
-def nuss_engine(dev, card):
+def nuss_engine(dev, card, total):
     """D, part 3: the JAX suite's engine rows at full width and depth, random
-    keys from a fixed seed; key preparation on the card, the median of 5
-    PBS calls, one profiled call. Returns the CPU cross-check of the u32
-    N=8192 cell: the first CMux steps of a few rows."""
+    keys from a fixed seed, each through jit_bootstrap_keyswitch_nuss (PBS
+    and keyswitch, ks base_log 2 level 5): key preparation on the card, the
+    replay equal to the eager call (K1, K5 / K6 and K7 launched in it), the
+    medians of 5 in turn, one profiled call of each. Returns the CPU
+    cross-check of the u32 N=8192 cell: the first CMux steps of a few
+    rows."""
     rng = np.random.default_rng(41)
     n_lwe, (bl, lv), b = (NUSS_ENGINE["lwe_dimension"], NUSS_ENGINE["pbs"],
                           NUSS_ENGINE["batch"])
     cpu_check = None
     for n in NUSS_ENGINE["sizes"]:
         for bits in (32, 64):
+            t_row = time.perf_counter()
             cfg = nuss_config(n, bits, bl, lv, n_lwe)
             plan = bsn.NussPlan.from_config(cfg)
             dt = torus.UNSIGNED[bits]
             bsk = rng.integers(0, np.iinfo(dt).max, size=(n_lwe, lv, 2, 2, n),
                                dtype=dt, endpoint=True)
+            ksk = rng.integers(0, np.iinfo(dt).max,
+                               size=(n, cfg.ks_level, n_lwe + 1), dtype=dt,
+                               endpoint=True)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             rings = bsn.bsk_to_nuss(bsk, cfg, device=dev)
             torch.cuda.synchronize()
             prep_s = time.perf_counter() - t0
+            ksk8 = torch.from_numpy(lwe_ops.ksk_to_limbs(ksk)).to(dev)
             lut = bs.trivial_lut_constant(cfg, 1 << (bits - 3), dev)
             cts = torus.from_numpy(rng.integers(
                 0, np.iinfo(dt).max, size=(b, n_lwe + 1), dtype=dt,
                 endpoint=True), dev)
             label = f"engine u{bits} N={n}"
-            run = (lambda cfg=cfg, rings=rings, lut=lut, cts=cts:
-                   bsn.bootstrap_nuss(cfg, rings, lut, cts))
-            out = run()
-            if out.shape != (b, n + 1):
+            jit = bsn.jit_bootstrap_keyswitch_nuss(cfg)
+            args = (rings, ksk8, lut, cts)
+            t0 = time.perf_counter()
+            jit(*args)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            log_jit("D", f"{label} jit_bootstrap_keyswitch_nuss", jit, card)
+            out = replay_vs_eager(
+                label, "D", total, lambda: jit(*args),
+                lambda cfg=cfg: bsn.bootstrap_keyswitch_nuss(cfg, *args),
+                must=("build_tables", "rotdig_fwd_nuss",
+                      "recombine_inv" if bits == 32 else "recombine_inv64"))
+            if out.shape != (b, n_lwe + 1):
                 raise AssertionError(f"{label}: output {tuple(out.shape)}")
-            med = median_s(run)
-            log(phase="D", cell=label, auto_backend=bsn.resolve_backend(cfg, "auto"),
-                backend="nuss", L=plan.l, M=plan.m, limbs=plan.limbs_used,
-                key_prep_s=prep_s, batch=b, ms_per_call=med * 1e3,
-                pbs_per_s=b / med, card=card)
-            log_profile(f"{label} PBS B={b}", run, card, gemm_ops=nuss_gemm_ops(plan, b))
+            med = log_in_turn(
+                "D", f"{label} PBS + keyswitch (jit)", b, lambda: jit(*args),
+                lambda cfg=cfg: bsn.bootstrap_keyswitch_nuss(cfg, *args), card,
+                auto_backend=bsn.resolve_backend(cfg, "auto"), backend="nuss",
+                L=plan.l, M=plan.m, limbs=plan.limbs_used, key_prep_s=prep_s,
+                first_call_s=first_s, replay_equal_to_eager=True)
+            profile_both(f"{label} PBS + keyswitch B={b}", lambda: jit(*args),
+                         lambda cfg=cfg: bsn.bootstrap_keyswitch_nuss(cfg, *args),
+                         card, gemm_ops=nuss_gemm_ops(plan, b))
             if (n, bits) == (NUSS_ENGINE["sizes"][0], 32):
-                engine_ntt(cfg, bsk, lut, cts, out, med, card)
-            if n == NUSS_ENGINE["sizes"][0] and bits == 32:
+                engine_ntt(cfg, bsk, ksk8, lut, cts, out, med, card, total)
                 cpu_check = (cfg, bsk[:NUSS_CPU_STEPS], rings[:NUSS_CPU_STEPS],
                              lut, cts[:NUSS_CPU_ROWS])
-            del rings, out
+            del rings, out, args, ksk8
             torch.cuda.empty_cache()
+            log(phase="D", cell=label, seconds=time.perf_counter() - t_row)
     return cpu_check
 
 
-def engine_ntt(cfg, bsk, lut, cts, nuss_out, nuss_s, card):
-    """The u32 N=8192 engine cell on backend="ntt" (K9 every step), beside
-    its nuss median: the measurement behind auto's u32 rule at large N. The
-    output must equal the nuss backend's."""
+def engine_ntt(cfg, bsk, ksk8, lut, cts, nuss_out, nuss_s, card, total):
+    """The u32 N=8192 engine cell on backend="ntt" (K9 every step) through
+    jit_bootstrap_keyswitch, replay equal to the eager call and to the
+    nuss backend's output, its medians beside nuss's: the measurement
+    behind auto's u32 rule at large N."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     spectra = bsk_to_ntt(bsk, cfg.primes, 32, device=cts.device)
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
-    run = lambda: bsntt.bootstrap(cfg, spectra, lut, cts)  # noqa: E731
-    if not torch.equal(run(), nuss_out):
+    jit = bsntt.jit_bootstrap_keyswitch(cfg)
+    args = (spectra, ksk8, lut, cts)
+    jit(*args)
+    log_jit("D", f"engine u32 N={cfg.polynomial_size} jit_bootstrap_keyswitch",
+            jit, card)
+    got = replay_vs_eager("engine u32 ntt", "D", total, lambda: jit(*args),
+                          lambda: bsntt.bootstrap_keyswitch(cfg, *args),
+                          must=("ntt_cmux",))
+    if not torch.equal(got, nuss_out):
         raise AssertionError("engine u32 N=8192: ntt differs from nuss")
-    med = median_s(run)
-    log(phase="D", cell=f"engine u32 N={cfg.polynomial_size}", backend="ntt",
-        k9=bsntt.kernel_applies(cfg), key_prep_s=prep_s, batch=cts.shape[0],
-        ms_per_call=med * 1e3, pbs_per_s=cts.shape[0] / med,
-        nuss_ms_per_call=nuss_s * 1e3, equal_to_nuss=True, card=card)
-    log_profile(f"engine u32 N={cfg.polynomial_size} ntt PBS B={cts.shape[0]}",
-                run, card)
+    log_in_turn("D", f"engine u32 N={cfg.polynomial_size} ntt PBS + keyswitch "
+                "(jit)", cts.shape[0], lambda: jit(*args),
+                lambda: bsntt.bootstrap_keyswitch(cfg, *args), card,
+                backend="ntt", k9=bsntt.kernel_applies(cfg), key_prep_s=prep_s,
+                nuss_ms_per_call=nuss_s * 1e3, equal_to_nuss=True)
+    profile_both(f"engine u32 N={cfg.polynomial_size} ntt PBS + keyswitch "
+                 f"B={cts.shape[0]}", lambda: jit(*args),
+                 lambda: bsntt.bootstrap_keyswitch(cfg, *args), card)
 
 
 def nuss_cpu_check(cfg, bsk, rings, lut, cts):
@@ -1091,32 +1343,34 @@ def nuss_cpu_check(cfg, bsk, rings, lut, cts):
 
 
 def phase_d(dev, card):
-    """The Nussbaumer backend; returns the kernel launches of its main path
-    (the CPU cross-check runs after the count is read)."""
-    reset_launch_counts()
-    nuss_gates(dev, card)
-    torch.cuda.empty_cache()
-    nuss_int4(dev, card)
-    torch.cuda.empty_cache()
-    cpu_check = nuss_engine(dev, card)
-    torch.cuda.synchronize()
-    launches = read_launches("D")
-    log(phase="D", launches=launches)
+    """The Nussbaumer backend; returns the kernel launches of its main path:
+    the replays and the high-level int4 calls (the CPU cross-check runs
+    after)."""
+    total = {}
+    PATH_SHAPES["D"] = {}
+    for part in (nuss_gates, nuss_int4, nuss_engine):
+        t0 = time.perf_counter()
+        cpu_check = part(dev, card, total)
+        log(phase="D", part=part.__name__, seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    log(phase="D", launches=total, launches_by_shape=PATH_SHAPES["D"])
     nuss_cpu_check(*cpu_check)
-    return launches
+    return total
 
 
-def ntt_gate_server(name, params, dev, card):
-    """E, per preset: the ntt twin of the phase-B key (same seeds) serving
-    AND/XOR/NAND/MUX requests, AND equal to the mxu backend; the AND median
-    beside the mxu one; K8 through the fused gate pipeline. Returns the
-    TPU128 CPU cross-check inputs (else None) and the ntt AND's median
-    seconds at B=2048."""
+def ntt_gate_server(name, params, dev, card, total):
+    """E, per preset: the ntt twin of the phase-B key (same seeds), warmed
+    at NTT_TIER rows, serving AND/XOR/NAND/MUX requests as graph replays
+    (K9 every step), each equal to the eager call and to its truth table,
+    AND equal to the mxu backend's; the AND's medians in turn beside the mxu twin's replay;
+    jit_bootstrap_keyswitch on the AND's inputs (TPU128), replay against
+    eager; K8 through bootstrap_keyswitch_mxu(fused=True), eager (no graph
+    reaches it). Returns the TPU128 CPU cross-check inputs (else None) and
+    the ntt AND's median seconds."""
     cks, sks = boolean.gen_keys(params, secret_seed=11, mask_seed=12,
                                 noise_seed=13, device=dev)
     auto = sks.resolved_backend()
-    sks = dataclasses.replace(sks, backend="mxu")
-    ntt = dataclasses.replace(sks, backend="ntt", _warmed_tiers=set())
+    ntt, sks = twin(sks, "ntt"), twin(sks, "mxu")
     t0 = time.perf_counter()
     ntt.bsk_ntt, ntt.ksk8  # noqa: B018 - key preparation on the card
     torch.cuda.synchronize()
@@ -1124,69 +1378,104 @@ def ntt_gate_server(name, params, dev, card):
         primes=list(ntt.cfg.primes), k9=bsntt.kernel_applies(ntt.cfg),
         key_prep_s=time.perf_counter() - t0,
         bsk_ntt_mb=ntt.bsk_ntt.numel() * 4 / 1e6)
+    warm_graphs("E", f"{name} ntt", ntt, [NTT_TIER], GATE_NAMES, True, card)
+    sks.warmup([NTT_TIER])
+    eager = EagerGates(ntt)
     cpu_check = None
     for size in NTT_REQUESTS:
         (a, b, c), (ca, cb, cc) = encrypt_bools(cks, size, 5000 + size)
         for gate in GATES:
-            out = call_gate(ntt, gate, ca, cb, cc)
+            out = replay_vs_eager(
+                f"{name} ntt {gate} B={size}", "E", total,
+                lambda gate=gate: call_gate(ntt, gate, ca, cb, cc),
+                lambda gate=gate: call_gate(eager, gate, ca, cb, cc),
+                must=("ntt_cmux",))
             if not np.array_equal(cks.decrypt(out), truth(gate, a, b, c)):
                 raise AssertionError(f"{name} ntt {gate} size {size}: wrong "
                                      "truth table")
             if gate == "and_":
                 if not torch.equal(out, sks.and_(ca, cb)):
                     raise AssertionError(f"{name} ntt AND differs from mxu")
-                if name == "TPU128" and size == 2048:
+                if name == "TPU128" and size == NTT_TIER:
                     cpu_check = (ntt, ca[:NTT_CPU_ROWS], cb[:NTT_CPU_ROWS],
                                  out[:NTT_CPU_ROWS].cpu())
         log(phase="E", params=name, backend="ntt", request_rows=size,
-            gates=list(GATES), truth_tables="ok", and_equal_to_mxu=True)
-    (a, b, _), (ca, cb, _) = encrypt_bools(cks, 2048, 7)
+            gates=list(GATES), truth_tables="ok", and_equal_to_mxu=True,
+            replay_equal_to_eager=True)
+    (a, b, _), (ca, cb, _) = encrypt_bools(cks, NTT_TIER, 7)
     ca, cb = torus.from_numpy(ca, dev), torus.from_numpy(cb, dev)
-    ntt_s = median_s(lambda: ntt.and_(ca, cb))
+    ntt_s = log_in_turn("E", f"{name} ntt AND", NTT_TIER, lambda: ntt.and_(ca, cb),
+                        lambda: eager.and_(ca, cb), card)
     mxu_s = median_s(lambda: sks.and_(ca, cb))
-    log(phase="E", params=name, tier=2048, gate="and_",
-        ntt_ms_per_call=ntt_s * 1e3, ntt_gates_per_s=2048 / ntt_s,
-        mxu_ms_per_call=mxu_s * 1e3, mxu_gates_per_s=2048 / mxu_s, card=card)
+    log(phase="E", params=name, tier=NTT_TIER, gate="and_",
+        ntt_ms_per_call=ntt_s * 1e3, ntt_gates_per_s=NTT_TIER / ntt_s,
+        mxu_ms_per_call=mxu_s * 1e3, mxu_gates_per_s=NTT_TIER / mxu_s, card=card)
 
     # AND's linear combination (server_key/mod.rs): a + b - 1/8 of the torus
     lin = ca + cb
     lin[:, -1] -= 1 << (32 - PLAINTEXT_LOG_SCALING_FACTOR)
+    if name == "TPU128":
+        jit = bsntt.jit_bootstrap_keyswitch(ntt.cfg)
+        args = (ntt.bsk_ntt, ntt.ksk8, ntt._lut(), lin)
+        jit(*args)
+        log_jit("E", f"{name} jit_bootstrap_keyswitch", jit, card)
+        got = replay_vs_eager(f"{name} jit_bootstrap_keyswitch", "E", total,
+                              lambda: jit(*args),
+                              lambda: bsntt.bootstrap_keyswitch(ntt.cfg, *args),
+                              must=("ntt_cmux",))
+        if not np.array_equal(cks.decrypt(got), a & b):
+            raise AssertionError(f"{name} jit_bootstrap_keyswitch: AND's truth "
+                                 "table")
+        log_in_turn("E", f"{name} ntt PBS + keyswitch (jit)", NTT_TIER,
+                    lambda: jit(*args),
+                    lambda: bsntt.bootstrap_keyswitch(ntt.cfg, *args), card,
+                    truth_table="ok", replay_equal_to_eager=True)
+        profile_both(f"TPU128 ntt AND B={NTT_TIER}", lambda: ntt.and_(ca, cb),
+                     lambda: eager.and_(ca, cb), card)
 
     def gate_mxu(fused):
         return bsx.bootstrap_keyswitch_mxu(sks.cfg, sks.bsk_mxu, sks.ksk8,
                                            sks._lut(), lin, fused=fused)
 
+    reset_launch_counts()
     fused_out = gate_mxu(True)
+    torch.cuda.synchronize()
+    add_launches("E", total)
     if not np.array_equal(cks.decrypt(fused_out), a & b):
         raise AssertionError(f"{name}: the fused AND's truth table is wrong")
     if not torch.equal(fused_out, gate_mxu(False)):
         raise AssertionError(f"{name}: the fused gate differs from unfused")
     fused_s = median_s(lambda: gate_mxu(True), reps=3)
     unfused_s = median_s(lambda: gate_mxu(False), reps=3)
-    log(phase="E", params=name, tier=2048, gate="and_ (bootstrap_keyswitch_mxu)",
+    log(phase="E", params=name, tier=NTT_TIER, gate="and_ (bootstrap_keyswitch_mxu)",
         fused_equal_to_unfused=True, fused_ms_per_call=fused_s * 1e3,
         unfused_ms_per_call=unfused_s * 1e3, card=card)
     if name == "TPU128":
-        log_profile("TPU128 ntt AND B=2048", lambda: ntt.and_(ca, cb), card)
-        log_profile("TPU128 fused AND B=2048", lambda: gate_mxu(True), card)
+        log_profile(f"TPU128 fused AND B={NTT_TIER}", lambda: gate_mxu(True), card)
     if name == "TFHE_LIB":
         fast = ntt.with_fast_mode()
-        (a, b, _), (ca2, cb2, _) = encrypt_bools(cks, 2048, 3000)
-        if not np.array_equal(cks.decrypt(fast.and_(ca2, cb2)), a & b):
+        fast.warmup([NTT_TIER])
+        (a, b, _), (ca2, cb2, _) = encrypt_bools(cks, NTT_TIER, 3000)
+        out = replay_vs_eager("TFHE_LIB fast ntt AND", "E", total,
+                              lambda: fast.and_(ca2, cb2),
+                              lambda: EagerGates(fast).and_(ca2, cb2),
+                              must=("ntt_cmux",))
+        if not np.array_equal(cks.decrypt(out), a & b):
             raise AssertionError("TFHE_LIB fast ntt AND: wrong truth table")
         ca2, cb2 = torus.from_numpy(ca2, dev), torus.from_numpy(cb2, dev)
         med = median_s(lambda: fast.and_(ca2, cb2), reps=3)
         log(phase="E", params="TFHE_LIB fast (levels=2) ntt",
-            primes=list(fast.cfg.primes), tier=2048, truth_tables="ok",
-            ms_per_call=med * 1e3, gates_per_s=2048 / med, card=card)
+            primes=list(fast.cfg.primes), tier=NTT_TIER, truth_tables="ok",
+            ms_per_call=med * 1e3, gates_per_s=NTT_TIER / med, card=card)
     return cpu_check, ntt_s
 
 
-def ntt_int4(dev, card):
+def ntt_int4(dev, card, total):
     """E: the int4 LUT of phase C through LWEBSK(backend="ntt") at B=256
-    (u64, three primes: the torch composition on the card): one PBS and
-    one multi-LUT call, every row decoded under the big key, equal to the
-    mxu backend, the PBS timed once."""
+    (u64, three primes: the torch composition on the card, eager): one PBS
+    and one multi-LUT call, every row decoded under the big key, equal to
+    the mxu backend, the PBS timed once; the mxu call's launches are added
+    to `total`."""
     (bl, lv), b = INT4["pbs"], INT4_NTT_BATCH
     sk = hl.LWESecretKey.new(INT4["lwe"], secret_seed=21)
     rsk = hl.RLWESecretKey.new(INT4["rlwe"], secret_seed=22)
@@ -1215,8 +1504,10 @@ def ntt_int4(dev, card):
     torch.cuda.synchronize()
     pbs_s = time.perf_counter() - t0
     mxu = dataclasses.replace(bsk, backend="mxu")
+    reset_launch_counts()
     if not torch.equal(got, mxu.run_bootstrap(acc, cts)):
         raise AssertionError("int4 ntt PBS differs from mxu")
+    add_launches("E", total)
     enc3, ct3, want3 = multi_lut_inputs(sk, xs, 30)
     check_multi_lut("int4 ntt", ct3.bootstrap_with_functions(bsk, MULTI_FNS, enc3),
                     want3, big)
@@ -1227,18 +1518,23 @@ def ntt_int4(dev, card):
 
 def phase_e(dev, card):
     """The ntt backend and the fused step; returns the kernel launches of
-    the main path (the CPU cross-check runs after the count is read) and
-    the ntt AND's median seconds at B=2048 per preset."""
-    reset_launch_counts()
-    cpu_check, ntt_and_s = None, {}
+    the main path (the replays, the fused calls and the int4 mxu call; the
+    CPU cross-check runs after) and the ntt AND's median seconds at B=2048
+    per preset."""
+    cpu_check, ntt_and_s, launches = None, {}, {}
+    PATH_SHAPES["E"] = {}
     for name, params in PRESETS.items():
-        check, ntt_and_s[name] = ntt_gate_server(name, params, dev, card)
+        t0 = time.perf_counter()
+        check, ntt_and_s[name] = ntt_gate_server(name, params, dev, card,
+                                                 launches)
+        log(phase="E", part=f"ntt_gate_server {name}",
+            seconds=time.perf_counter() - t0)
         cpu_check = check or cpu_check
         torch.cuda.empty_cache()
-    ntt_int4(dev, card)
-    torch.cuda.synchronize()
-    launches = read_launches("E")
-    log(phase="E", launches=launches)
+    t0 = time.perf_counter()
+    ntt_int4(dev, card, launches)
+    log(phase="E", part="ntt_int4", seconds=time.perf_counter() - t0)
+    log(phase="E", launches=launches, launches_by_shape=PATH_SHAPES["E"])
     t0 = time.perf_counter()
     ntt, ca, cb, want = cpu_check
     if not torch.equal(ntt.to("cpu").and_(ca, cb), want):
@@ -1277,7 +1573,7 @@ def keygen_parts(cks, sks, dev):
     parts["bsk_s"] = time.perf_counter() - t0
     if not np.array_equal(bsk.data, sks.bsk_standard):
         raise AssertionError("the timed BSK differs from gen_keys'")
-    mxu = dataclasses.replace(sks, backend="mxu", _warmed_tiers=set())
+    mxu = twin(sks, "mxu")
     for name, prep in (("ntt", lambda: sks.bsk_ntt),
                        ("mxu", lambda: mxu.bsk_mxu),
                        ("ksk_limbs", lambda: sks.ksk8)):
@@ -1348,17 +1644,28 @@ def phase_f(dev, card):
     if sks.resolved_backend() != "ntt":
         raise AssertionError(f"DEFAULT auto is {sks.resolved_backend()}, not ntt")
     for key in (sks, mxu):
-        key.warmup([f["rows"]], gates=("xor", "and"), mux=True)
+        warm_graphs("F", f"DEFAULT {key.resolved_backend()}", key, [f["rows"]],
+                    ("xor", "and"), True, card)
     a_dev, b_dev = torus.from_numpy(a_bits, dev), torus.from_numpy(b_bits, dev)
     log(phase="F", rows=f["rows"], encrypt_uint_s=encrypt_s)
 
+    # each adder: 23 replayed gate calls, equal to the 23 eager ones
     t0 = time.perf_counter()
-    reset_launch_counts()
-    outs = {key.resolved_backend(): circuits.ripple_carry_adder(key, a_dev, b_dev)
-            for key in (sks, mxu)}
-    torch.cuda.synchronize()
-    launches = read_launches("F")
-    log(phase="F", main_path_s=time.perf_counter() - t0, launches=launches)
+    launches, outs = {}, {}
+    PATH_SHAPES["F"] = {}
+
+    def adder(key):   # the sum planes and the carry in one tensor
+        sums, carry = circuits.ripple_carry_adder(key, a_dev, b_dev)
+        return torch.cat([sums, carry[None]])
+
+    for key in (sks, mxu):
+        backend = key.resolved_backend()
+        out = replay_vs_eager(f"{backend} adder", "F", launches,
+                              lambda key=key: adder(key),
+                              lambda key=key: adder(EagerGates(key)))
+        outs[backend] = (out[:-1], out[-1])
+    log(phase="F", main_path_s=time.perf_counter() - t0, launches=launches,
+        launches_by_shape=PATH_SHAPES["F"], replay_equal_to_eager=True)
 
     sums, carry = outs["ntt"]
     if not (torch.equal(sums, outs["mxu"][0]) and torch.equal(carry, outs["mxu"][1])):
@@ -1375,12 +1682,16 @@ def phase_f(dev, card):
     if wrong or wrong_carry:
         raise AssertionError(f"adder: {wrong} sums, {wrong_carry} carries wrong")
     for key in (sks, mxu):
-        med = median_s(lambda key=key: circuits.ripple_carry_adder(key, a_dev, b_dev),
-                       reps=3)
+        replay_s, eager_s = in_turn(
+            lambda key=key: circuits.ripple_carry_adder(key, a_dev, b_dev),
+            lambda key=key: circuits.ripple_carry_adder(EagerGates(key), a_dev,
+                                                        b_dev), reps=3)
         log(phase="F", backend=key.resolved_backend(), rows=f["rows"],
-            ms_per_add=med * 1e3, adds_per_s=f["rows"] / med,
-            gates_per_s=ADDER_GATES * f["rows"] / med, card=card)
-    log_profile(f"DEFAULT ntt 8-bit add B={f['rows']}",
+            ms_per_add=replay_s * 1e3, adds_per_s=f["rows"] / replay_s,
+            gates_per_s=ADDER_GATES * f["rows"] / replay_s,
+            eager_ms_per_add=eager_s * 1e3, eager_adds_per_s=f["rows"] / eager_s,
+            card=card)
+    log_profile(f"DEFAULT ntt 8-bit add B={f['rows']} replay",
                 lambda: circuits.ripple_carry_adder(sks, a_dev, b_dev), card)
 
     big = cks.glwe_secret_key.into_lwe_key()
@@ -1645,7 +1956,8 @@ def timed(fn):
 
 def h1_cell(name, pipeline, fn, unsharded, args, cks, a, b, card, total):
     """One H1 pipeline: its output equal to the unsharded call's and AND's
-    truth table; PHASE_H["reps"] timed calls of each, in turn, their
+    truth table; PHASE_H["reps"] (or H1_REPS) timed calls of each, in
+    turn, their
     medians and every time logged; the launches of the pipeline's timed
     calls alone (reset just before each, read just after) must include
     H1_KERNELS[pipeline] and are added to `total`."""
@@ -1654,7 +1966,7 @@ def h1_cell(name, pipeline, fn, unsharded, args, cks, a, b, card, total):
         raise AssertionError(f"{name} {pipeline}: AND's truth table")
     pmesh.reset_sent_bytes()
     counted, mesh_t, base_t = {}, [], []
-    for _ in range(PHASE_H["reps"]):   # in turn: host drift falls on both
+    for _ in range(H1_REPS.get(pipeline, PHASE_H["reps"])):   # in turn
         base_t.append(timed(lambda: unsharded(*args))[0])
         reset_launch_counts()
         secs, out = timed(lambda: fn(*args))
@@ -1834,11 +2146,10 @@ def main():
 
     if "B" in phases:
         t0 = time.perf_counter()
-        reset_launch_counts()
-        cpu_check = phase_b(dev, card)
-        path_launches["B"] = read_launches("B")
+        PATH_SHAPES["B"] = {}
+        cpu_check, path_launches["B"] = phase_b(dev, card)
         log(phase="B", seconds=time.perf_counter() - t0,
-            launches=path_launches["B"])
+            launches=path_launches["B"], launches_by_shape=PATH_SHAPES["B"])
         check_launched("B", path_launches["B"])
 
         t0 = time.perf_counter()

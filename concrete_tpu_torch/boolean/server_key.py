@@ -11,7 +11,11 @@ wherever its CRT primes take the configuration, else the toeplitz ("mxu")
 backend for N <= 4096 and the Nussbaumer ("nuss") backend above
 (bootstrap_nuss.resolve_backend); or through the one named by `backend`.
 The three are bit-identical. Gates take np.uint32 arrays or int32
-tensors [..., n+1] and return int32 tensors on the key's device.
+tensors [..., n+1] and return int32 tensors on the key's device. On the
+card each gate call replays one captured CUDA graph per (gate, padded
+tier) holding the whole gate (_gate_pipeline, _mux_pipeline: concrete_tpu's
+jitted pipelines), made at warmup or at the tier's first call
+(ops/graphs.py); on the CPU the pipelines run as they are.
 
 Example (AND and XOR on tiny insecure parameters, on the CPU):
     >>> from concrete_tpu_torch import boolean
@@ -30,6 +34,7 @@ Example (AND and XOR on tiny insecure parameters, on the CPU):
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -42,7 +47,7 @@ from ..core import bootstrap_nuss as bsn
 from ..core import lwe as lwe_ops
 from ..core.ggsw import StandardBootstrapKey, bsk_to_ntt
 from ..csprng import EncryptionRandomGenerator
-from ..ops import _cuda
+from ..ops import _cuda, graphs
 from ..params import BooleanParameters
 from ..torus import as_torus, from_numpy, i32
 from .client_key import ClientKey, PLAINTEXT_LOG_SCALING_FACTOR, PLAINTEXT_TRUE
@@ -87,9 +92,18 @@ class ServerKey:
     _bsk_nuss: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     _bsk_ntt: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     _ksk8: torch.Tensor | None = dataclasses.field(default=None, repr=False)
+    _lut_t: torch.Tensor | None = dataclasses.field(
+        default=None, repr=False, compare=False)
     # batch tiers run by warmup(); _pad_size pads smaller requests up to them
     _warmed_tiers: set = dataclasses.field(
         default_factory=set, repr=False, compare=False)
+    # the gate pipelines' graphs ({(pipeline, backend, cfg): GraphedCall},
+    # one graph per tier each) and their memory pool; new wherever the keys
+    # change (to, with_fast_mode, load)
+    _graphs: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+    _graph_pool: graphs.GraphPool = dataclasses.field(
+        default_factory=graphs.GraphPool, repr=False, compare=False)
 
     def __post_init__(self):
         c = self.cfg
@@ -201,12 +215,13 @@ class ServerKey:
 
     def to(self, device) -> "ServerKey":
         """The same key on another device (evaluation forms moved, not
-        rebuilt; warmed tiers are per device and start empty)."""
+        rebuilt; warmed tiers and graphs are per device and start empty)."""
         move = (lambda t: None if t is None else t.to(device))
         return dataclasses.replace(
             self, device=torch.device(device), _bsk_mxu=move(self._bsk_mxu),
             _bsk_nuss=move(self._bsk_nuss), _bsk_ntt=move(self._bsk_ntt),
-            _ksk8=move(self._ksk8), _warmed_tiers=set())
+            _ksk8=move(self._ksk8), _lut_t=move(self._lut_t),
+            **_fresh_graphs())
 
     def with_fast_mode(self, *, limb_drop: int = 0,
                        levels: int | None = 2) -> "ServerKey":
@@ -220,7 +235,7 @@ class ServerKey:
         cfg = self.cfg.with_fast_mode(limb_drop=limb_drop, levels=levels)
         return dataclasses.replace(
             self, cfg=cfg, bsk_standard=self.bsk_standard[:, :cfg.pbs_level],
-            _bsk_mxu=None, _bsk_nuss=None, _bsk_ntt=None, _warmed_tiers=set())
+            _bsk_mxu=None, _bsk_nuss=None, _bsk_ntt=None, **_fresh_graphs())
 
     # -- batching ------------------------------------------------------------
 
@@ -251,10 +266,12 @@ class ServerKey:
         return out[:b].reshape(lead + out.shape[-1:])
 
     def warmup(self, batch_sizes=(2048,), gates=("and",), mux=False):
-        """Build the CUDA kernels (on a CUDA key) and run one call per (gate,
-        batch tier), plus MUX when `mux` is set, as concrete_tpu's
-        ServerKey.warmup; the first call also moves the evaluation keys onto
-        the device. Gates are named as there ("and", "xor", ... the keys of
+        """Build the CUDA kernels (on a CUDA key) and make each (gate, batch
+        tier)'s graph, plus MUX's when `mux` is set, as concrete_tpu's
+        ServerKey.warmup compiles one program each; the first call also
+        moves the evaluation keys onto the device. A graph is one run of the
+        gate on a side stream, its capture and one replay (on a CPU key, one
+        call). Gates are named as there ("and", "xor", ... the keys of
         _GATE_LIN). Each size is rounded up to a power-of-two tier; later
         gate calls pad every request up to the smallest warmed tier that
         fits. Returns {(gate, tier): seconds}."""
@@ -288,25 +305,35 @@ class ServerKey:
     # -- gates ---------------------------------------------------------------
 
     def _lut(self) -> torch.Tensor:
-        return bs.trivial_lut_constant(self.cfg, PLAINTEXT_TRUE, self.device)
+        """The gates' test polynomial (constant body 1/8), made once per key
+        on its device: a copy from the host, which no graph capture holds."""
+        if self._lut_t is None:
+            self._lut_t = bs.trivial_lut_constant(self.cfg, PLAINTEXT_TRUE,
+                                                  self.device)
+        return self._lut_t
+
+    def _bootstrap_keys(self) -> torch.Tensor:
+        backend = self.resolved_backend()
+        if backend == "nuss":
+            return self.bsk_nuss
+        if backend == "ntt":
+            return self.bsk_ntt
+        return self.bsk_mxu
+
+    def _graphed(self, name: str, pipeline) -> graphs.GraphedCall:
+        """The key's GraphedCall of `pipeline`, fn(bsk, ksk8, lut, *cts)."""
+        slot = (name, self.resolved_backend(), self.cfg)
+        if slot not in self._graphs:
+            self._graphs[slot] = graphs.GraphedCall(
+                pipeline, 3, name=f"{name} ({slot[1]})", pool=self._graph_pool)
+        return self._graphs[slot]
 
     def _run_gate(self, gate: str, ct_left, ct_right) -> torch.Tensor:
-        lin_fn, offset = _GATE_LIN[gate]
-
-        def run(a, b):
-            lin = lin_fn(a, b)
-            lin[:, -1] += offset
-            backend = self.resolved_backend()
-            if backend == "nuss":
-                return bsn.bootstrap_keyswitch_nuss(
-                    self.cfg, self.bsk_nuss, self.ksk8, self._lut(), lin)
-            if backend == "ntt":
-                return bsntt.bootstrap_keyswitch(
-                    self.cfg, self.bsk_ntt, self.ksk8, self._lut(), lin)
-            return bsx.bootstrap_keyswitch_mxu(
-                self.cfg, self.bsk_mxu, self.ksk8, self._lut(), lin)
-
-        return self._padded_call(run, ct_left, ct_right)
+        call = self._graphed(
+            gate, _gate_pipeline(self.cfg, self.resolved_backend(), gate))
+        keys = (self._bootstrap_keys(), self.ksk8, self._lut())
+        return self._padded_call(lambda a, b: call(*keys, a, b),
+                                 ct_left, ct_right)
 
     def and_(self, ct_left, ct_right):
         return self._run_gate("and", ct_left, ct_right)
@@ -333,28 +360,63 @@ class ServerKey:
     def mux(self, ct_condition, ct_then, ct_else):
         """(c ? t : e) via two PBS sharing one blind rotation batch, then one
         keyswitch (server_key/mod.rs:197-279)."""
+        call = self._graphed("mux", _mux_pipeline(self.cfg,
+                                                  self.resolved_backend()))
+        keys = (self._bootstrap_keys(), self.ksk8, self._lut())
+        return self._padded_call(lambda c, t, e: call(*keys, c, t, e),
+                                 ct_condition, ct_then, ct_else)
 
-        def run(c, t, e):
-            lin1 = c + t
-            lin1[:, -1] += _NEG_EIGHTH
-            lin2 = e - c
-            lin2[:, -1] += _NEG_EIGHTH
-            both = torch.stack([lin1, lin2])
-            backend = self.resolved_backend()
-            if backend == "nuss":
-                pbs = bsn.bootstrap_nuss(self.cfg, self.bsk_nuss, self._lut(),
-                                         both)
-            elif backend == "ntt":
-                pbs = bsntt.bootstrap(self.cfg, self.bsk_ntt, self._lut(),
-                                      both)
-            else:
-                pbs = bsx.bootstrap_mxu(self.cfg, self.bsk_mxu, self._lut(),
-                                        both)
-            summed = pbs[0] + pbs[1]
-            summed[:, -1] += _EIGHTH
-            return lwe_ops.keyswitch_prepared(
-                self.ksk8, summed, base_log=self.cfg.ks_base_log,
-                level_count=self.cfg.ks_level)
 
-        return self._padded_call(run, ct_condition, ct_then, ct_else)
+def _fresh_graphs() -> dict:
+    """The fields of a key copy whose keys change: no warmed tier, no graph
+    (a copy sharing its parent's would replay the parent's keys)."""
+    return {"_warmed_tiers": set(), "_graphs": {},
+            "_graph_pool": graphs.GraphPool()}
 
+
+_PBS_KEYSWITCH = {"mxu": bsx.bootstrap_keyswitch_mxu,
+                  "nuss": bsn.bootstrap_keyswitch_nuss,
+                  "ntt": bsntt.bootstrap_keyswitch}
+_PBS = {"mxu": bsx.bootstrap_mxu, "nuss": bsn.bootstrap_nuss,
+        "ntt": bsntt.bootstrap}
+
+
+@functools.lru_cache(maxsize=None)
+def _gate_pipeline(cfg: bs.ServerConfig, backend: str, gate: str):
+    """The full gate, concrete_tpu's jitted pipeline of the same name:
+    fn(bsk, ksk8, lut, a, b) -> the linear combination and offset, the PBS
+    with the constant 1/8 test polynomial on `backend`, the keyswitch.
+    ServerKey captures it as one CUDA graph per (gate, padded tier). The
+    LUT is an argument, made once per key (ServerKey._lut): concrete_tpu
+    builds it inside the jitted program, where here it would be a copy from
+    the host inside the capture."""
+    bks = _PBS_KEYSWITCH[backend]
+    lin_fn, offset = _GATE_LIN[gate]
+
+    def run(bsk, ksk8, lut, a, b):
+        lin = lin_fn(a, b)
+        lin[..., -1] += offset
+        return bks(cfg, bsk, ksk8, lut, lin)
+
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def _mux_pipeline(cfg: bs.ServerConfig, backend: str):
+    """MUX in one pipeline, concrete_tpu's of the same name: fn(bsk, ksk8,
+    lut, c, t, e) -> both linear combinations, the two PBS stacked on one
+    batch axis (one blind rotation), their sum plus 1/8, the keyswitch."""
+    pbs_fn = _PBS[backend]
+
+    def run(bsk, ksk8, lut, c, t, e):
+        lin1 = c + t
+        lin1[..., -1] += _NEG_EIGHTH
+        lin2 = e - c
+        lin2[..., -1] += _NEG_EIGHTH
+        pbs = pbs_fn(cfg, bsk, lut, torch.stack([lin1, lin2]))
+        summed = pbs[0] + pbs[1]
+        summed[..., -1] += _EIGHTH
+        return lwe_ops.keyswitch_prepared(
+            ksk8, summed, base_log=cfg.ks_base_log, level_count=cfg.ks_level)
+
+    return run

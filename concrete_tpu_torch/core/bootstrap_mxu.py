@@ -45,12 +45,13 @@ Example:
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ..math import decomposition, polynomial
-from ..ops import _cuda
+from ..ops import _cuda, graphs
 from ..torus import as_torus, carrier
 from . import checks
 from . import lwe as lwe_ops
@@ -825,3 +826,14 @@ def bootstrap_keyswitch_mxu(cfg: ServerConfig, bsk_rings, ksk8, lut, lwe, *,
     big = bootstrap_mxu(cfg, bsk_rings, lut, lwe, fused=fused)
     return lwe_ops.keyswitch_prepared(ksk8, big, base_log=cfg.ks_base_log,
                                       level_count=cfg.ks_level)
+
+
+@functools.lru_cache(maxsize=None)
+def jit_bootstrap_keyswitch_mxu(cfg: ServerConfig) -> graphs.GraphedCall:
+    """bootstrap_keyswitch_mxu for `cfg` in one dispatch, as concrete_tpu's
+    jitted one: fn(bsk_rings, ksk8, lut, lwe). On CUDA tensors a call
+    replays one CUDA graph per signature (ops/graphs.py): the key tensors
+    bsk_rings and ksk8 are read where they lie, lut and lwe are copied in.
+    On CPU tensors the eager function runs. Both tori."""
+    return graphs.GraphedCall(functools.partial(bootstrap_keyswitch_mxu, cfg),
+                              2, name="bootstrap_keyswitch_mxu")

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..math import crt, decomposition, ntt, polynomial
-from ..ops import _cuda
+from ..ops import _cuda, graphs
 from ..torus import carrier
 from . import checks
 from . import lwe as lwe_ops
@@ -336,3 +336,16 @@ def bootstrap_keyswitch(cfg: ServerConfig, bsk_ntt, ksk8, lut, lwe):
     big = bootstrap(cfg, bsk_ntt, lut, lwe)
     return lwe_ops.keyswitch_prepared(ksk8, big, base_log=cfg.ks_base_log,
                                       level_count=cfg.ks_level)
+
+
+@functools.lru_cache(maxsize=None)
+def jit_bootstrap_keyswitch(cfg: ServerConfig) -> graphs.GraphedCall:
+    """bootstrap_keyswitch for `cfg` in one dispatch, as concrete_tpu's
+    jit_bootstrap_keyswitch (concrete_tpu/core/bootstrap.py, whose ntt PBS
+    functions the port keeps here): fn(bsk_ntt, ksk8, lut, lwe), one CUDA
+    graph per signature on CUDA tensors (ops/graphs.py; bsk_ntt and ksk8
+    read where they lie, lut and lwe copied in), the eager function on CPU
+    tensors. Both tori: K9 every step on u32, the torch composition on
+    u64."""
+    return graphs.GraphedCall(functools.partial(bootstrap_keyswitch, cfg), 2,
+                              name="bootstrap_keyswitch")

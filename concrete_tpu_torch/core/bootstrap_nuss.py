@@ -46,11 +46,12 @@ Example:
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from ..math import decomposition, nussbaumer as nb
-from ..ops import _cuda
+from ..ops import _cuda, graphs
 from ..torus import as_torus, carrier, lshr
 from . import bootstrap_mxu as bsx
 from . import lwe as lwe_ops
@@ -754,3 +755,16 @@ def bootstrap_keyswitch_nuss(cfg: ServerConfig, bsk_rings, ksk8, lut, lwe, *,
     big = bootstrap_nuss(cfg, bsk_rings, lut, lwe, l=l)
     return lwe_ops.keyswitch_prepared(ksk8, big, base_log=cfg.ks_base_log,
                                       level_count=cfg.ks_level)
+
+
+@functools.lru_cache(maxsize=None)
+def jit_bootstrap_keyswitch_nuss(cfg: ServerConfig,
+                                 l: int | None = None) -> graphs.GraphedCall:
+    """bootstrap_keyswitch_nuss for `cfg` (chunk count `l`) in one dispatch,
+    as concrete_tpu's jitted one: fn(bsk_rings, ksk8, lut, lwe), one CUDA
+    graph per signature on CUDA tensors (ops/graphs.py; bsk_rings and ksk8
+    read where they lie, lut and lwe copied in), the eager function on CPU
+    tensors. Both tori."""
+    return graphs.GraphedCall(
+        functools.partial(bootstrap_keyswitch_nuss, cfg, l=l), 2,
+        name="bootstrap_keyswitch_nuss")

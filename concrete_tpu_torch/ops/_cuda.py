@@ -136,11 +136,17 @@ def load_all():
         library(name)
 
 
+# the kernel wrappers given a counter (the keys), whose counts the launch
+# accounting of captured graphs reads and adds to (ops/graphs.py)
+COUNTED: dict = {}
+
+
 def counter(kernel):
     """Give a kernel wrapper its launch counts: `launches`, the total, and
-    `shapes`, {shape key: launches}. Returns the wrapper."""
+    `shapes`, {shape key: launches}, both zero. Returns the wrapper."""
     kernel.launches = 0
     kernel.shapes = {}
+    COUNTED[kernel] = None
     return kernel
 
 

@@ -1,0 +1,256 @@
+"""One captured CUDA graph per input signature: the port's counterpart of
+``jax.jit``.
+
+concrete_tpu compiles each gate, and each PBS + keyswitch, into one XLA
+program per shape and replays it (``_gate_pipeline``, ``_mux_pipeline``,
+``jit_bootstrap_keyswitch*``), so that a call reaches the TPU as one
+dispatch. On a CUDA card the counterpart of that program is a CUDA graph:
+``GraphedCall(fn, n_static)`` wraps ``fn(*static, *inputs)``, where the
+`static` arguments are key tensors that the graph reads where they lie
+(their identity is part of the signature) and the `inputs` are copied into
+the graph's own buffers on every call.
+
+On CUDA tensors, the first call with a new signature (input shapes and
+dtypes, the device, the static tensors' identity) runs `fn` once on a side
+stream, which builds what is built at first use (cuBLASLt's workspace, the
+per-device tables of math/ntt.py and core/bootstrap_ntt.py), then captures
+it with ``torch.cuda.graph`` into the call's memory pool (``GraphPool``,
+which several calls may share). Every call then copies its inputs in,
+replays the graph and returns a clone of its output, all on the caller's
+current stream: the next replay of any graph of the pool starts after the
+clone, so graphs that share a pool replay in any order. On CPU tensors
+`fn` is called. There is no fallback: a capture that fails raises
+``GraphCaptureError`` with the line that broke it, and a call never runs
+eagerly on the card instead.
+
+The kernel wrappers count their launches in Python (``_cuda.count_launch``),
+which under replay would run only while the graph is captured. So a graph
+keeps what its capture added to every counter (``launch_record``), the
+capture's own counts are taken back out, and every replay adds the record
+(``add_launches``): the counts are those of the kernels the card ran.
+
+Example (on the CPU the wrapped function runs as it is):
+    >>> import torch
+    >>> double = GraphedCall(lambda key, x: key * x, 1)
+    >>> double(torch.tensor([2]), torch.tensor([1, 2, 3])).tolist()
+    [2, 4, 6]
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+import traceback
+import weakref
+
+import torch
+
+from . import _cuda
+
+
+class GraphCaptureError(RuntimeError):
+    """A call could not be captured into a CUDA graph."""
+
+
+# ---------------------------------------------------------------------------
+# launch accounting
+# ---------------------------------------------------------------------------
+
+
+def snapshot() -> dict:
+    """Every counted kernel wrapper's (launches, {shape key: launches})."""
+    return {k: (k.launches, dict(k.shapes)) for k in _cuda.COUNTED}
+
+
+def launch_record(before: dict, after: dict) -> dict:
+    """The launches between two snapshots, {kernel: (launches, {shape key:
+    launches})}; kernels that did not launch are left out.
+
+    >>> def k(): pass
+    >>> k = _cuda.counter(k)
+    >>> before = snapshot()
+    >>> _cuda.count_launch(k, B=4); _cuda.count_launch(k, B=8)
+    >>> launch_record(before, snapshot())[k]
+    (2, {'B=4': 1, 'B=8': 1})
+    """
+    record = {}
+    for kernel, (n, shapes) in after.items():
+        n0, shapes0 = before.get(kernel, (0, {}))
+        if n != n0:
+            record[kernel] = (n - n0, {
+                key: v - shapes0.get(key, 0) for key, v in shapes.items()
+                if v != shapes0.get(key, 0)})
+    return record
+
+
+def add_launches(record: dict, times: int = 1):
+    """Add `times` x `record` to the wrappers' counters; times=-1 takes a
+    record back out (a shape key left at 0 goes, as if never counted)."""
+    for kernel, (n, shapes) in record.items():
+        kernel.launches += times * n
+        for key, v in shapes.items():
+            left = kernel.shapes.get(key, 0) + times * v
+            if left:
+                kernel.shapes[key] = left
+            else:
+                kernel.shapes.pop(key, None)
+
+
+# ---------------------------------------------------------------------------
+# capture and replay
+# ---------------------------------------------------------------------------
+
+_TORCH_DIR = os.path.dirname(torch.__file__)
+
+# one capture stream per device for the whole process, as torch.cuda.graph
+# keeps one: captures into a shared pool should use the same stream
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    if device.index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device.index]
+
+
+def _origin(exc: BaseException) -> tuple[str, BaseException]:
+    """(where, error): the first error of `exc`'s chain (a failed capture
+    raises again when the capture is closed) and the innermost line outside
+    torch and this module that it came from."""
+    chain = []
+    while exc is not None and exc not in chain:
+        chain.append(exc)
+        exc = exc.__context__
+    first = chain[-1]
+    frames = [f for f in traceback.extract_tb(first.__traceback__)
+              if not f.filename.startswith(_TORCH_DIR)
+              and f.filename != __file__]
+    if not frames:
+        return "an unknown line", first
+    f = frames[-1]
+    return f"{f.filename}:{f.lineno} in {f.name} ({f.line})", first
+
+
+class GraphPool:
+    """A CUDA graph memory pool (``torch.cuda.graph_pool_handle()``), made at
+    the first capture into it; the graphs of one key share one."""
+
+    def __init__(self):
+        self._handle = None
+
+    @property
+    def handle(self):
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
+
+@dataclasses.dataclass
+class CapturedGraph:
+    """One signature's graph: its input buffers and output, the launches
+    one replay counts, and what the capture cost."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: tuple
+    output: torch.Tensor
+    launches: dict
+    warm_s: float          # the first run of fn, on a side stream
+    capture_s: float       # fn recorded into the graph
+    instantiate_s: float   # capture end: the executable graph made
+
+    def replay(self, inputs) -> torch.Tensor:
+        for buf, x in zip(self.inputs, inputs):
+            buf.copy_(x)
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.output.clone()
+
+
+def _capture(fn, static, inputs, pool: GraphPool, name: str) -> CapturedGraph:
+    device = inputs[0].device if inputs else static[0].device
+    current = torch.cuda.current_stream(device)
+    bufs = tuple(x.clone() for x in inputs)   # outside the pool, kept
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        fn(*static, *bufs)
+    current.wait_stream(side)
+    torch.cuda.synchronize(device)
+    t1 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    stream = _capture_stream(device)
+    before = snapshot()
+    try:
+        # the outer context restores the caller's stream even when the
+        # capture's end raises (the graph context then leaves its own open)
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            with torch.cuda.graph(graph, pool=pool.handle, stream=stream):
+                out = fn(*static, *bufs)
+                t2 = time.perf_counter()
+    except RuntimeError as exc:   # a CUDA call that a capture refuses
+        where, first = _origin(exc)
+        raise GraphCaptureError(
+            f"{name}: CUDA graph capture failed at {where}: "
+            f"{type(first).__name__}: {first}") from exc
+    finally:
+        record = launch_record(before, snapshot())
+        add_launches(record, -1)
+    t3 = time.perf_counter()
+    if not isinstance(out, torch.Tensor):
+        raise GraphCaptureError(f"{name}: returns {type(out).__name__}, "
+                                "expected one tensor")
+    return CapturedGraph(graph, bufs, out, record, t1 - t0, t2 - t1, t3 - t2)
+
+
+def _device(args) -> torch.device:
+    if not all(isinstance(a, torch.Tensor) for a in args):
+        raise TypeError("a graphed call takes tensors only")
+    devices = {a.device for a in args}
+    if len(devices) != 1:
+        raise ValueError(f"tensors must share one device, got {devices}")
+    return devices.pop()
+
+
+class GraphedCall:
+    """``fn(*static, *inputs)`` replayed from one CUDA graph per signature
+    on CUDA tensors, called as it is on CPU tensors (see the module
+    docstring). The first `n_static` arguments are the static ones. A
+    graph is dropped when one of its static tensors is freed. `pool` is
+    shared with other calls (a key's), else the call makes its own."""
+
+    def __init__(self, fn, n_static: int = 0, *, name: str | None = None,
+                 pool: GraphPool | None = None):
+        self.fn = fn
+        self.n_static = n_static
+        self.name = name or getattr(fn, "__name__", repr(fn))
+        self.pool = GraphPool() if pool is None else pool
+        self.graphs: dict = {}
+
+    def __call__(self, *args) -> torch.Tensor:
+        device = _device(args)
+        if device.type != "cuda":
+            return self.fn(*args)
+        static, inputs = args[:self.n_static], args[self.n_static:]
+        key = (device, tuple(id(t) for t in static),
+               tuple((tuple(x.shape), x.dtype) for x in inputs))
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = _capture(self.fn, static, inputs, self.pool, self.name)
+            self.graphs[key] = graph
+            for t in static:    # the ids stay the tensors' own while kept
+                weakref.finalize(t, self.graphs.pop, key, None)
+        if device.index != torch.cuda.current_device():
+            with torch.cuda.device(device):
+                return graph.replay(inputs)
+        return graph.replay(inputs)
+
+    def captures(self) -> list[dict]:
+        """Per graph: the input shapes, the capture's seconds by part and
+        the kernel launches one replay counts."""
+        return [{"inputs": [list(s) for s, _ in key[2]],
+                 "warm_s": g.warm_s, "capture_s": g.capture_s,
+                 "instantiate_s": g.instantiate_s,
+                 "launches_per_replay": sum(n for n, _ in g.launches.values())}
+                for key, g in self.graphs.items()]

@@ -280,6 +280,20 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def event_ms(fn) -> float:
+    """Device ms of one call of `fn` between two CUDA events on the current
+    stream: its kernels and the gaps between them, from the first to the
+    last. CUDA only."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def median_s(fn, reps: int = 5) -> float:
     """Median host seconds of `reps` calls, each between two device
     synchronisations."""
@@ -331,8 +345,9 @@ KERNEL_KINDS = (("ntt_cmux_kernel", "K9 ntt_cmux"),
 
 def profile_call(fn, gemm_ops=None) -> dict:
     """One call of `fn` under torch.profiler: device time summed by kernel
-    kind (KERNEL_KINDS), and the device idle share of the call's wall time
-    (the profiler adds host overhead, so the idle share is an upper bound).
+    kind (KERNEL_KINDS), the device operations it saw (kernels, copies,
+    memsets) and the device idle share of the call's wall time (the
+    profiler adds host overhead, so the idle share is an upper bound).
     With `gemm_ops`, the int8 operations of the call's CMux products, also
     the int8 GEMM's rate in TOP/s (its device time includes a gate's
     keyswitch product). CUDA only."""
@@ -344,16 +359,17 @@ def profile_call(fn, gemm_ops=None) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {}
+    kinds, events = {}, 0
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         kind = next((k for pat, k in KERNEL_KINDS if pat in evt.key),
                     "other (torch elementwise, copies)")
         kinds[kind] = kinds.get(kind, 0.0) + evt.self_device_time_total / 1e3
+        events += evt.count
     busy = sum(kinds.values())
     out = {"wall_ms": wall_ms, "device_ms": busy,
-           "idle_share": 1.0 - busy / wall_ms}
+           "idle_share": 1.0 - busy / wall_ms, "device_events": events}
     if gemm_ops and kinds.get("int8 GEMM"):
         out["gemm_tops"] = gemm_ops / (kinds["int8 GEMM"] * 1e-3) / 1e12
     out["device_ms_by_kind"] = dict(sorted(kinds.items(), key=lambda kv: -kv[1]))
