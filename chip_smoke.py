@@ -13,12 +13,15 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           device times (CUDA graph replay between CUDA events), the least
           time the card could take for the same work and the share of it
           reached (K8 also its T MAC/s and share of the int8 tensor rate).
-  Every gate call of phases B, D, E and F and every jit_* call of C, D
-  and E replays a captured CUDA graph (ops/graphs.py; ServerKey captures
-  one per (gate, padded tier) at warmup). Each is held, bit for bit, to
+  Every gate call of phases B, D, E and F, every jit_* call of C, D
+  and E, every high-level PBS call (LWEBSK, C to H) and every sharded
+  pipeline of H1 replays a captured CUDA graph (ops/graphs.py; ServerKey
+  captures one per (gate, padded tier) at warmup, LWEBSK one per
+  signature, each pipeline factory its own). Each is held, bit for bit, to
   the eager call on the same padded inputs (EagerGates: the same
-  pipelines with no graph), and each replay's launches, counted over the
-  replays alone, to an eager call's, in total and by shape key. Warmup
+  pipelines with no graph; highlevel_replays; h1_cell), and each replay's
+  launches, counted over the replays alone, to an eager call's, in total
+  and by shape key. Warmup
   logs its seconds per (gate, tier), each graph's run / capture /
   instantiation seconds and the memory the graphs keep (memory_reserved
   before and after); timed cells log the median of 5 replays beside the
@@ -50,14 +53,19 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           equal to the eager call and to the high-level rows; the first 16
           CMux steps for 32 rows and 64 keyswitched rows recomputed on the
           CPU must match the card bit for bit; build_tables and rotdig64
-          must launch; the median time of 5 PBS calls (exact and fast) and
-          of a keyswitch.
+          must launch; the high-level PBS (exact and fast) and multi-LUT
+          calls replay the key's graphs (LWEBSK, one per signature), each
+          held to the backend's eager function bit for bit and by launches
+          (highlevel_replays), the medians of 5 replays and 5 eager calls
+          in turn; the median of 5 keyswitches.
   D       the Nussbaumer backend (N > 4096 and any N by request): AND and
           XOR on a backend="nuss" twin of a TFHE_LIB key, 2048 rows, every
           row on its truth table and equal to the mxu backend's; the int4
           LUT of phase C at N = 8192 through the high-level API (LWE128_630,
           RLWEParams(8192, 1, -62), PBS base_log 7 level 3, u64), 256 values
-          plus one multi-LUT call, every PBS row decoded under the big key;
+          plus one multi-LUT call, every PBS row decoded under the big key,
+          the PBS and multi-LUT replays held to the eager calls, medians of
+          3 in turn;
           the JAX suite's engine rows (benchmarks/suite.py "nuss": n=100,
           k=1, base_log 2, level 3, B=256, N in {8192, 16384} x {u32, u64})
           through jit_bootstrap_keyswitch_nuss, with key preparation on the
@@ -75,8 +83,8 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           ntt AND recomputed on the CPU;
           the int4 LUT of phase C through LWEBSK(backend="ntt") (u64, three
           primes: the torch composition) at B=256, PBS and multi-LUT, every
-          row decoded under the big key, equal to the mxu backend, timed
-          once; bootstrap_keyswitch_mxu(fused=True) (K8 every step, eager:
+          row decoded under the big key, equal to the mxu backend, one
+          replay timed; bootstrap_keyswitch_mxu(fused=True) (K8 every step, eager:
           no graph reaches it) on the three gate keys at B=2048, equal to
           fused=False, medians of 3 beside the unfused ones; one profiled
           TPU128 call each of the ntt AND and the fused AND. K8 and K9 must
@@ -127,20 +135,27 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           gate_pipeline_dp (mxu and ntt) and gate_pipeline_dp_tp_mxu on the
           TPU128 and DEFAULT keys, gate_pipeline_dp_tp (the level-split ntt
           composition) on the TPU128 ntt twin and gate_pipeline_dp_tp_nuss
-          on phase D's backend="nuss" TFHE_LIB twin: every output bit for
-          bit the unsharded call's and AND's truth table, each pipeline's
-          median of 3 beside the unsharded call's, the two called in turn.
-          The launch counts are reset just before each of the pipeline's
-          timed calls and read just after (the unsharded calls fall
-          outside): dp mxu and
-          dp_tp_mxu must launch K1 and K2, dp_tp_nuss K1, K5 and K7, dp ntt
-          K9; the level-split ntt composition runs no kernel. H2:
+          on phase D's backend="nuss" TFHE_LIB twin, each a captured CUDA
+          graph (mesh._compiled): its first call's seconds by part (run,
+          capture, instantiation) and the memory its graph keeps; the
+          replay bit for bit its eager run's (replay_vs_eager: the launch
+          counts of a replay, reset just before and read just after, equal
+          an eager run's by shape key), the unsharded call's (the
+          single-device jit_* replay) and AND's truth table; medians of 4
+          replays and eager runs and 3 unsharded calls in turn (the
+          level-split composition: one replay, also between CUDA events,
+          beside one eager run, ~12 s), the bytes the replays hand to
+          collectives (0 on one rank) and one profiled replay. dp mxu
+          and dp_tp_mxu must launch K1 and K2, dp_tp_nuss K1, K5 and K7,
+          dp ntt K9; the level-split ntt composition runs no kernel. H2:
           multihost.run(2, 1) on the card, two processes on gloo (NCCL
           refuses two ranks on one GPU), the toy and the TPU128 real-key
-          tiers (rank 0 makes the key and broadcasts it) at B=256 with dp and then tp across the
-          processes: every shard equal to the single-device call, the
-          gathered rows decrypting to a & b, each rank's seconds and bytes
-          sent logged beside the plan's count (which they must equal).
+          tiers (rank 0 makes the key and broadcasts it) at B=256 with dp
+          and then tp across the processes: every shard equal to the
+          single-device call, the gathered rows decrypting to a & b, each
+          rank's seconds (after a first call) and bytes sent logged beside
+          the plan's count (which they must equal), the dp tier graphed
+          (tp = 1) and the tp tier eager (gloo), as they must be.
           H3: the seven examples' main() at their published parameters and
           sizes on the card, each checking its own answers, its launches a
           path of their own (K1, K4 and K9 must launch).
@@ -327,8 +342,11 @@ DIGESTS_G = {
 # phase H: parallel/ on one card (H1 on NCCL, H2 two processes on gloo)
 PHASE_H = {"batch": 2048, "reps": 3, "h2_processes": 2, "h2_batch": 256,
            "seed": 8000}
-# the level-split ntt composition (no kernel, ~12 s a call on the H100) is
-# timed once, the other pipelines PHASE_H["reps"] times
+# H1's rounds in turn after the replay and eager run held to each other:
+# the level-split ntt composition (no kernel; ~12 s an eager call, 11.2 s
+# of device work, on the H100) one round of the unsharded call alone, the
+# other pipelines PHASE_H["reps"] rounds of unsharded call, replay and
+# eager run
 H1_REPS = {"gate_pipeline_dp_tp (ntt, level split)": 1}
 _COUNTED = (bsx, bsn, bsntt)
 # phase -> {kernel: {shape key: launches}} of its main path (read_launches),
@@ -1062,12 +1080,10 @@ def phase_c(dev, card):
         dev)
     cts = torus.from_numpy(v.data, dev)
     for label, key in (("exact", bsk), ("drop2", fast)):
-        med = median_s(lambda key=key: key.run_bootstrap(acc, cts))
-        log(phase="C", pbs=label, batch=b, ms_per_call=med * 1e3,
-            pbs_per_s=b / med, card=card)
-        log_profile(f"int4 PBS {label} B={b}",
-                    lambda key=key: key.run_bootstrap(acc, cts), card,
-                    gemm_ops=mxu_gemm_ops(bsx.MxuPlan.from_config(key.cfg), b))
+        highlevel_replays("C", f"int4 PBS {label} B={b}", key, acc, cts,
+                          launches, card, many=label == "exact",
+                          must=PATH_KERNELS["C"], gemm_ops=mxu_gemm_ops(
+                              bsx.MxuPlan.from_config(key.cfg), b))
     phase_c_jit(bsk, fast, ksk, acc, cts, outs, launches, card)
     big_ct = bsk.run_bootstrap(acc, cts)
     med = median_s(lambda: ksk.run_keyswitch(big_ct))
@@ -1096,6 +1112,33 @@ def phase_c(dev, card):
         keyswitch_rows=KS_CPU_ROWS, bit_identical=True,
         seconds=time.perf_counter() - t0)
     return launches
+
+
+def highlevel_replays(phase, label, bsk, acc, cts, total, card, many, must,
+                      gemm_ops, reps=5):
+    """The key's graphed PBS (LWEBSK.run_bootstrap; with `many` also
+    run_bootstrap_many, lut_count_log 1), its graphs captured by the main
+    path, held by replay_vs_eager to the backend's eager function on the
+    same inputs (equal bits, launches by shape key; the kernels `must`
+    launched); the key's graphs' capture seconds by part; the medians of
+    `reps` replays and eager calls in turn and one profiled call of each."""
+    backend = bsk.resolved_backend()
+    key = bsk._bootstrap_key()
+    pbs, pbs_many = hl.keys._PBS[backend], hl.keys._PBS_MANY[backend]
+    eager = lambda: pbs(bsk.cfg, key, acc, cts)   # noqa: E731
+    replay_vs_eager(label, phase, total, lambda: bsk.run_bootstrap(acc, cts),
+                    eager, must=must)
+    if many:
+        replay_vs_eager(f"{label} multi-LUT", phase, total,
+                        lambda: bsk.run_bootstrap_many(acc, cts, 1),
+                        lambda: pbs_many(bsk.cfg, key, acc, cts, 1), must=must)
+    log_in_turn(phase, f"{label} (high-level, {backend})", cts.shape[0],
+                lambda: bsk.run_bootstrap(acc, cts), eager, card, reps,
+                replay_equal_to_eager=True,
+                graphs=[dict(pipeline=c.name, **g)
+                        for c in bsk._graphs.values() for g in c.captures()])
+    profile_both(label, lambda: bsk.run_bootstrap(acc, cts), eager, card,
+                 gemm_ops=gemm_ops, phase=phase)
 
 
 def phase_c_jit(bsk, fast, ksk, acc, cts, outs, total, card):
@@ -1171,9 +1214,10 @@ def nuss_gates(dev, card, total):
 
 def nuss_int4(dev, card, total):
     """D, part 2: the int4 LUT of phase C at N = 8192 through the high-level
-    API (auto backend -> nuss, eager), 256 values and one multi-LUT call;
-    every PBS row must decode under the big key; their launches are added
-    to `total`."""
+    API (auto backend -> nuss, replayed graphs), 256 values and one
+    multi-LUT call; every PBS row must decode under the big key; their
+    launches are added to `total`; the PBS and multi-LUT replays held to
+    the eager calls, timed beside them (highlevel_replays)."""
     (bl, lv), b = INT4["pbs"], INT4_8192["batch"]
     t0 = time.perf_counter()
     sk = hl.LWESecretKey.new(INT4["lwe"], secret_seed=21)
@@ -1220,11 +1264,11 @@ def nuss_int4(dev, card, total):
         _accumulator(bsk, generate_functional_lut(bsk, enc, enc, int4_table)),
         dev)
     cts = torus.from_numpy(v.data, dev)
-    med = median_s(lambda: bsk.run_bootstrap(acc, cts), reps=3)
-    log(phase="D", cell="int4 N=8192", batch=b, ms_per_call=med * 1e3,
-        pbs_per_s=b / med, card=card)
-    log_profile(f"int4 N=8192 PBS B={b}", lambda: bsk.run_bootstrap(acc, cts),
-                card, gemm_ops=nuss_gemm_ops(plan, b))
+    highlevel_replays("D", f"int4 N=8192 PBS B={b}", bsk, acc, cts, total,
+                      card, many=True, reps=3,
+                      must=("build_tables", "recombine_inv64",
+                            "rotdig_fwd_nuss"),
+                      gemm_ops=nuss_gemm_ops(plan, b))
 
 
 def nuss_engine(dev, card, total):
@@ -1472,10 +1516,11 @@ def ntt_gate_server(name, params, dev, card, total):
 
 def ntt_int4(dev, card, total):
     """E: the int4 LUT of phase C through LWEBSK(backend="ntt") at B=256
-    (u64, three primes: the torch composition on the card, eager): one PBS
-    and one multi-LUT call, every row decoded under the big key, equal to
-    the mxu backend, the PBS timed once; the mxu call's launches are added
-    to `total`."""
+    (u64, three primes: the torch composition on the card, captured as the
+    key's graph at the first call): one PBS and one multi-LUT call, every
+    row decoded under the big key, equal to the mxu backend, one replay
+    timed, the graphs' capture seconds logged; the mxu call's launches are
+    added to `total`."""
     (bl, lv), b = INT4["pbs"], INT4_NTT_BATCH
     sk = hl.LWESecretKey.new(INT4["lwe"], secret_seed=21)
     rsk = hl.RLWESecretKey.new(INT4["rlwe"], secret_seed=22)
@@ -1513,7 +1558,9 @@ def ntt_int4(dev, card, total):
                     want3, big)
     log(phase="E", cell=f"int4 ntt B={b}", rows=b, wrong_rows=0,
         multi_lut_functions=len(MULTI_FNS), equal_to_mxu=True,
-        ms_per_call=pbs_s * 1e3, pbs_per_s=b / pbs_s, card=card)
+        ms_per_call=pbs_s * 1e3, pbs_per_s=b / pbs_s, replayed=True,
+        graphs=[dict(pipeline=c.name, **g) for c in bsk._graphs.values()
+                for g in c.captures()], card=card)
 
 
 def phase_e(dev, card):
@@ -1955,46 +2002,86 @@ def timed(fn):
 
 
 def h1_cell(name, pipeline, fn, unsharded, args, cks, a, b, card, total):
-    """One H1 pipeline: its output equal to the unsharded call's and AND's
-    truth table; PHASE_H["reps"] (or H1_REPS) timed calls of each, in
-    turn, their
-    medians and every time logged; the launches of the pipeline's timed
-    calls alone (reset just before each, read just after) must include
-    H1_KERNELS[pipeline] and are added to `total`."""
+    """One H1 pipeline (a GraphedCall, mesh._compiled): its first call
+    (the run, capture and instantiation of its graph) with the seconds by
+    part and the memory the graph keeps; a replay held to the pipeline's
+    eager run by replay_vs_eager (equal bits, equal launches by shape key,
+    H1_KERNELS[pipeline] launched; the replay's launches added to `total`)
+    and to the unsharded call (the single-device jit_* replay) and AND's
+    truth table; then PHASE_H["reps"] rounds of unsharded call, replay and
+    eager run, in turn (H1_REPS: rounds of the unsharded call alone); the
+    medians of every replay and eager run timed (the pair held to each
+    other included), every time, the bytes the replays hand to
+    collectives, and one profiled replay (its idle share; the level-split
+    composition's ~443,000 kernels a call: the replay held to its eager
+    run, between CUDA events too, as the profiler's trace of them takes
+    minutes)."""
+    if not fn.graphed:
+        raise AssertionError(f"{name} {pipeline}: not graphed on NCCL")
     want = unsharded(*args)
     if not np.array_equal(cks.decrypt(want), a & b):
         raise AssertionError(f"{name} {pipeline}: AND's truth table")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    first_s, _ = timed(lambda: fn(*args))
+    torch.cuda.empty_cache()
+    pool_mb = (torch.cuda.memory_reserved() - before) / 1e6
+    mesh_t, eager_t, base_t, ev_ms = [], [], [], []
+
+    def replay():
+        secs, out = timed(lambda: fn(*args))
+        mesh_t.append(secs)
+        return out
+
+    def replay_with_events():   # the same replay between CUDA events too
+        box = []
+        ev_ms.append(event_ms(lambda: box.append(replay())))
+        return box[0]
+
+    def eager():
+        secs, out = timed(lambda: fn.fn(*args))
+        eager_t.append(secs)
+        return out
+
     pmesh.reset_sent_bytes()
-    counted, mesh_t, base_t = {}, [], []
+    got = replay_vs_eager(
+        f"H1 {name} {pipeline}", "H1", total,
+        replay_with_events if pipeline in H1_REPS else replay, eager,
+        must=H1_KERNELS[pipeline])
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} {pipeline}: differs from the "
+                             "unsharded call")
     for _ in range(H1_REPS.get(pipeline, PHASE_H["reps"])):   # in turn
         base_t.append(timed(lambda: unsharded(*args))[0])
-        reset_launch_counts()
-        secs, out = timed(lambda: fn(*args))
-        add_launches("H1", counted)
-        mesh_t.append(secs)
-        if not torch.equal(out, want):
-            raise AssertionError(f"{name} {pipeline}: differs from the "
-                                 "unsharded call")
-    launches = {k: n for k, n in counted.items() if n}
-    for k, n in counted.items():
-        total[k] = total.get(k, 0) + n
+        if pipeline not in H1_REPS:
+            if not torch.equal(replay(), want):
+                raise AssertionError(f"{name} {pipeline}: a replay differs")
+            eager()
+    sent = pmesh.sent_bytes()
     mesh_s, base_s = statistics.median(mesh_t), statistics.median(base_t)
+    eager_s = statistics.median(eager_t)
     log(phase="H1", params=name, pipeline=pipeline, mesh="1x1 nccl",
-        batch=PHASE_H["batch"], bit_identical=True, truth_table="ok",
-        ms_per_call=mesh_s * 1e3, unsharded_ms_per_call=base_s * 1e3,
-        wrapper_ms=(mesh_s - base_s) * 1e3, ms_each=[t * 1e3 for t in mesh_t],
-        unsharded_ms_each=[t * 1e3 for t in base_t],
-        sent_bytes=pmesh.sent_bytes(), launches_in_timed_calls=launches,
-        card=card)
-    missing = [k for k in H1_KERNELS[pipeline] if k not in launches]
-    if missing:
-        raise AssertionError(f"H1 {name} {pipeline} never launched {missing}")
+        batch=PHASE_H["batch"], graphed=fn.graphed,
+        replay_equal_to_eager=True, equal_to_unsharded=True,
+        truth_table="ok", ms_per_call=mesh_s * 1e3,
+        eager_ms_per_call=eager_s * 1e3, unsharded_ms_per_call=base_s * 1e3,
+        ms_each=[t * 1e3 for t in mesh_t],
+        eager_ms_each=[t * 1e3 for t in eager_t],
+        unsharded_ms_each=[t * 1e3 for t in base_t], first_call_s=first_s,
+        graphs=fn.captures(), pool_mb=pool_mb, sent_bytes=sent, card=card)
+    if pipeline in H1_REPS:
+        log(phase="H1", cell=f"H1 {name} {pipeline} replay",
+            event_ms=ev_ms[0], wall_ms=mesh_t[0] * 1e3, card=card)
+    else:
+        log_profile(f"H1 {name} {pipeline} replay", lambda: fn(*args), card,
+                    phase="H1")
 
 
 def phase_h1(dev, card):
     """Every pipeline of parallel/mesh.py on a world of one (NCCL), at full
-    width, against the unsharded call. Returns the launches of the
-    pipelines' timed calls."""
+    width, replayed against its eager run and the unsharded call. Returns
+    the launches of the pipelines' replays held to their eager runs."""
     total = {}
     torch.cuda.set_device(0)
     store = dist.FileStore(os.path.join(tempfile.mkdtemp(), "h1_store"), 1)
@@ -2015,26 +2102,24 @@ def phase_h1(dev, card):
                 nuss = (sks.bsk_nuss, sks.ksk8, lut, lin)
                 cells = [("gate_pipeline_dp_tp_nuss",
                           pmesh.gate_pipeline_dp_tp_nuss(cfg, mesh),
-                          lambda *x: bsn.bootstrap_keyswitch_nuss(cfg, *x),
-                          nuss)]
+                          bsn.jit_bootstrap_keyswitch_nuss(cfg), nuss)]
             else:
                 mxu = (sks.bsk_mxu, sks.ksk8, lut, lin)
                 ntt = (sks.bsk_ntt, sks.ksk8, lut, lin)
                 cells = [
                     ("gate_pipeline_dp mxu",
                      pmesh.gate_pipeline_dp(cfg, mesh, "mxu"),
-                     lambda *x: bsx.bootstrap_keyswitch_mxu(cfg, *x), mxu),
+                     bsx.jit_bootstrap_keyswitch_mxu(cfg), mxu),
                     ("gate_pipeline_dp ntt",
                      pmesh.gate_pipeline_dp(cfg, mesh, "ntt"),
-                     lambda *x: bsntt.bootstrap_keyswitch(cfg, *x), ntt),
+                     bsntt.jit_bootstrap_keyswitch(cfg), ntt),
                     ("gate_pipeline_dp_tp_mxu",
                      pmesh.gate_pipeline_dp_tp_mxu(cfg, mesh),
-                     lambda *x: bsx.bootstrap_keyswitch_mxu(cfg, *x), mxu)]
+                     bsx.jit_bootstrap_keyswitch_mxu(cfg), mxu)]
             if name == "TPU128":
                 cells.append(("gate_pipeline_dp_tp (ntt, level split)",
                               pmesh.gate_pipeline_dp_tp(cfg, mesh),
-                              lambda *x: bsntt.bootstrap_keyswitch(cfg, *x),
-                              ntt))
+                              bsntt.jit_bootstrap_keyswitch(cfg), ntt))
             for pipeline, fn, unsharded, args in cells:
                 h1_cell(name, pipeline, fn, unsharded, args, cks, a, b, card,
                         total)
@@ -2048,7 +2133,10 @@ def phase_h1(dev, card):
 def phase_h2(card):
     """multihost.run(2, 1) on the card: two processes on gloo (CUDA
     tensors), the toy and TPU128 real-key tiers, dp then tp across the
-    processes; every rank's seconds and bytes sent beside the plan's."""
+    processes; every rank's seconds (after a first call, which captures
+    the graphed dp tier) and bytes sent beside the plan's, and whether the
+    tier ran graphed (dp across the processes: tp = 1, graphed; tp across
+    them on gloo: eager)."""
     t0 = time.perf_counter()
     stats = multihost.run(PHASE_H["h2_processes"], 1, timeout=600,
                           device="cuda", backend="gloo",
@@ -2058,6 +2146,10 @@ def phase_h2(card):
             raise AssertionError(f"H2 {s['tag']} rank {s['rank']}: sent "
                                  f"{s['sent_bytes']} bytes, the plan says "
                                  f"{s['planned_bytes']}")
+        if s["graphed"] != s["tag"].endswith("tp=1"):
+            raise AssertionError(f"H2 {s['tag']}: graphed={s['graphed']}, "
+                                 "but gloo runs a tp > 1 pipeline eager and "
+                                 "a tp = 1 one graphed")
         log(phase="H2", backend="gloo (CUDA tensors)", batch=PHASE_H["h2_batch"],
             **s, card=card)
     log(phase="H2", processes=PHASE_H["h2_processes"], calls=len(stats),

@@ -29,6 +29,7 @@ Example (a tiny PBS + keyswitch on the CPU):
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -44,6 +45,7 @@ from ..core.glwe import GlweSecretKey
 from ..core.lwe import LweKeyswitchKey, LweSecretKey
 from ..csprng import EncryptionRandomGenerator, SecretRandomGenerator
 from ..dispersion import Variance
+from ..ops import graphs
 from ..ops._cuda import resolve_device
 from ..params import log2_exact
 from ..torus import as_torus, from_numpy
@@ -128,7 +130,14 @@ class LWEBSK:
     """Bootstrapping key (lwe_bsk.rs:20): GGSW encryptions of the input key
     bits under the RLWE key, [n, l, k+1, k+1, N] np.uint64. The rings of the
     mxu (N <= 4096) or nuss (N = 8192, 16384) backend, or the spectra of the
-    ntt backend, are built on `device` at first use."""
+    ntt backend, are built on `device` at first use.
+
+    run_bootstrap and run_bootstrap_many replay one captured CUDA graph per
+    signature on the card (ops/graphs.py): concrete_tpu runs each blind
+    rotation as one compiled lax.scan, so its CMux loop reaches the device
+    as one program; here the whole PBS does. The key keeps the graphs and
+    their pool; a key made from another's fields (with_fast_mode, load)
+    starts with none."""
 
     cfg: bs.ServerConfig
     variance: float
@@ -138,6 +147,11 @@ class LWEBSK:
     _bsk_mxu: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     _bsk_nuss: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     _bsk_ntt: torch.Tensor | None = dataclasses.field(default=None, repr=False)
+    # {(backend, cfg, lut_count_log or None): GraphedCall} and their pool
+    _graphs: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+    _graph_pool: graphs.GraphPool = dataclasses.field(
+        default_factory=graphs.GraphPool, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -164,7 +178,8 @@ class LWEBSK:
         cfg = self.cfg.with_fast_mode(limb_drop=limb_drop, levels=levels)
         return dataclasses.replace(
             self, cfg=cfg, coefficient_bsk=self.coefficient_bsk[:, :cfg.pbs_level],
-            _bsk_mxu=None, _bsk_nuss=None, _bsk_ntt=None)
+            _bsk_mxu=None, _bsk_nuss=None, _bsk_ntt=None, _graphs={},
+            _graph_pool=graphs.GraphPool())
 
     def bootstrap_output_variance(self, lwe_dimension: int) -> float:
         """PBS output variance, with the reduced-precision term in fast
@@ -209,33 +224,47 @@ class LWEBSK:
                                        device=self.device)
         return self._bsk_ntt
 
-    def run_bootstrap(self, accumulator, cts) -> torch.Tensor:
-        """PBS of `cts` [..., n+1] against `accumulator` [k+1, N] (u64 numpy
-        or int64 tensors) -> [..., k*N+1] int64 on the device."""
-        acc = as_torus(accumulator, self.device, BITS)
-        cts = as_torus(cts, self.device, BITS)
+    def _graphed(self, lut_count_log: int | None) -> graphs.GraphedCall:
+        """The key's GraphedCall of its backend's PBS (lut_count_log None)
+        or multi-LUT PBS: fn(bsk, accumulator, cts), the backend's key
+        tensor static."""
+        backend = self.resolved_backend()
+        slot = (backend, self.cfg, lut_count_log)
+        if slot not in self._graphs:
+            if lut_count_log is None:
+                fn, name = functools.partial(_PBS[backend], self.cfg), "pbs"
+            else:
+                fn = functools.partial(_PBS_MANY[backend], self.cfg,
+                                       lut_count_log=lut_count_log)
+                name = f"pbs_many_lut lut_count_log={lut_count_log}"
+            self._graphs[slot] = graphs.GraphedCall(
+                fn, 1, name=f"{name} ({backend})", pool=self._graph_pool)
+        return self._graphs[slot]
+
+    def _bootstrap_key(self) -> torch.Tensor:
         backend = self.resolved_backend()
         if backend == "nuss":
-            return bsn.bootstrap_nuss(self.cfg, self.bsk_nuss, acc, cts)
+            return self.bsk_nuss
         if backend == "ntt":
-            return bsntt.bootstrap(self.cfg, self.bsk_ntt, acc, cts)
-        return bsx.bootstrap_mxu(self.cfg, self.bsk_mxu, acc, cts)
+            return self.bsk_ntt
+        return self.bsk_mxu
+
+    def run_bootstrap(self, accumulator, cts) -> torch.Tensor:
+        """PBS of `cts` [..., n+1] against `accumulator` [k+1, N] (u64 numpy
+        or int64 tensors) -> [..., k*N+1] int64 on the device, replayed
+        from the key's graph of this signature on the card."""
+        acc = as_torus(accumulator, self.device, BITS)
+        cts = as_torus(cts, self.device, BITS)
+        return self._graphed(None)(self._bootstrap_key(), acc, cts)
 
     def run_bootstrap_many(self, accumulator, cts,
                            lut_count_log: int) -> torch.Tensor:
         """Multi-LUT PBS: one blind rotation, 2^lcl packed functions ->
-        [2^lcl, ..., k*N+1] int64 on the device."""
+        [2^lcl, ..., k*N+1] int64 on the device (a graph per signature and
+        lut_count_log on the card)."""
         acc = as_torus(accumulator, self.device, BITS)
         cts = as_torus(cts, self.device, BITS)
-        backend = self.resolved_backend()
-        if backend == "nuss":
-            return bsn.bootstrap_many_lut_nuss(self.cfg, self.bsk_nuss, acc,
-                                               cts, lut_count_log)
-        if backend == "ntt":
-            return bsntt.bootstrap_many_lut(self.cfg, self.bsk_ntt, acc, cts,
-                                            lut_count_log)
-        return bsx.bootstrap_many_lut_mxu(self.cfg, self.bsk_mxu, acc, cts,
-                                          lut_count_log)
+        return self._graphed(lut_count_log)(self._bootstrap_key(), acc, cts)
 
     @classmethod
     def new(cls, sk_input: LWESecretKey, sk_output: RLWESecretKey,
@@ -302,6 +331,14 @@ class LWEBSK:
                               int(d["base_log"]), int(d["level"]))
             return cls(cfg=cfg, variance=float(d["variance"]),
                        coefficient_bsk=data, device=device, backend=backend)
+
+
+# fn(cfg, bsk, accumulator, cts[, lut_count_log=]) of each backend
+_PBS = {"mxu": bsx.bootstrap_mxu, "nuss": bsn.bootstrap_nuss,
+        "ntt": bsntt.bootstrap}
+_PBS_MANY = {"mxu": bsx.bootstrap_many_lut_mxu,
+             "nuss": bsn.bootstrap_many_lut_nuss,
+             "ntt": bsntt.bootstrap_many_lut}
 
 
 @dataclasses.dataclass

@@ -24,6 +24,8 @@ Example (multiply by X: the wrapped coefficient is negated):
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 from ..torus import bits_of
@@ -33,8 +35,12 @@ def negacyclic_monomial_mul(poly: torch.Tensor, degree) -> torch.Tensor:
     """poly * X^degree mod (X^N + 1) (polynomial.rs:685-707).
 
     poly: [..., N] int32 or int64; degree: int or integer tensor broadcastable against
-    poly.shape[:-1], read mod 2N."""
+    poly.shape[:-1], read mod 2N. An int is filled in on the device: a copy
+    from the host is what a CUDA graph capture refuses."""
     n = poly.shape[-1]
+    if isinstance(degree, numbers.Integral):
+        degree = torch.full((), int(degree), dtype=torch.int64,
+                            device=poly.device)
     degree = torch.as_tensor(degree, dtype=torch.int64, device=poly.device)
     lead = torch.broadcast_shapes(poly.shape[:-1], degree.shape)
     src = (torch.arange(n, device=poly.device)
@@ -45,7 +51,8 @@ def negacyclic_monomial_mul(poly: torch.Tensor, degree) -> torch.Tensor:
 
 def negacyclic_monomial_div(poly: torch.Tensor, degree) -> torch.Tensor:
     """poly * X^-degree mod (X^N + 1) (polynomial.rs:709-744)."""
-    degree = torch.as_tensor(degree, dtype=torch.int64, device=poly.device)
+    if not isinstance(degree, numbers.Integral):
+        degree = torch.as_tensor(degree, dtype=torch.int64, device=poly.device)
     return negacyclic_monomial_mul(poly, -degree)
 
 

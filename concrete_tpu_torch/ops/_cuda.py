@@ -136,8 +136,10 @@ def load_all():
         library(name)
 
 
-# the kernel wrappers given a counter (the keys), whose counts the launch
-# accounting of captured graphs reads and adds to (ops/graphs.py)
+# every count that the accounting of captured graphs reads and adds to
+# (ops/graphs.py), each mapped to the names of its total and of its {key:
+# count}: the kernel wrappers given a counter ("launches", "shapes") and
+# the plain counters of graphs.Counter ("total", "by_key")
 COUNTED: dict = {}
 
 
@@ -146,7 +148,7 @@ def counter(kernel):
     `shapes`, {shape key: launches}, both zero. Returns the wrapper."""
     kernel.launches = 0
     kernel.shapes = {}
-    COUNTED[kernel] = None
+    COUNTED[kernel] = ("launches", "shapes")
     return kernel
 
 

@@ -24,10 +24,12 @@ clone, so graphs that share a pool replay in any order. On CPU tensors
 eagerly on the card instead.
 
 The kernel wrappers count their launches in Python (``_cuda.count_launch``),
-which under replay would run only while the graph is captured. So a graph
-keeps what its capture added to every counter (``launch_record``), the
-capture's own counts are taken back out, and every replay adds the record
-(``add_launches``): the counts are those of the kernels the card ran.
+and other modules keep plain counts there too (``Counter``: the bytes
+parallel/mesh.py hands to collectives); under replay that Python runs
+only while the graph is captured. So a graph keeps what its capture added
+to every registered count (``count_record``), the capture's own counts are
+taken back out, and every replay adds the record (``add_counts``): the
+counts are those of the work the card did.
 
 Example (on the CPU the wrapped function runs as it is):
     >>> import torch
@@ -54,47 +56,76 @@ class GraphCaptureError(RuntimeError):
 
 
 # ---------------------------------------------------------------------------
-# launch accounting
+# count accounting
 # ---------------------------------------------------------------------------
 
 
+class Counter:
+    """A plain count kept in Python, accounted for under replay as the
+    kernel wrappers' launches are: `total` and `by_key`, {key: count}.
+    Registered in _cuda.COUNTED for the life of the process.
+
+    >>> sent = Counter("sent_bytes")
+    >>> sent.add(8, "all_reduce"); sent.add(4, "all_reduce")
+    >>> sent.total, sent.by_key
+    (12, {'all_reduce': 12})
+    """
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.total = 0
+        self.by_key = {}
+        _cuda.COUNTED[self] = ("total", "by_key")
+
+    def add(self, n: int, key: str):
+        self.total += n
+        self.by_key[key] = self.by_key.get(key, 0) + n
+
+    def reset(self):
+        self.total, self.by_key = 0, {}
+
+
 def snapshot() -> dict:
-    """Every counted kernel wrapper's (launches, {shape key: launches})."""
-    return {k: (k.launches, dict(k.shapes)) for k in _cuda.COUNTED}
+    """Every registered count's (total, {key: count}): each kernel
+    wrapper's launches by shape key, each Counter's."""
+    return {c: (getattr(c, total), dict(getattr(c, by_key)))
+            for c, (total, by_key) in _cuda.COUNTED.items()}
 
 
-def launch_record(before: dict, after: dict) -> dict:
-    """The launches between two snapshots, {kernel: (launches, {shape key:
-    launches})}; kernels that did not launch are left out.
+def count_record(before: dict, after: dict) -> dict:
+    """The counts between two snapshots, {count: (total, {key: n})}; counts
+    that did not move are left out.
 
     >>> def k(): pass
     >>> k = _cuda.counter(k)
     >>> before = snapshot()
     >>> _cuda.count_launch(k, B=4); _cuda.count_launch(k, B=8)
-    >>> launch_record(before, snapshot())[k]
+    >>> count_record(before, snapshot())[k]
     (2, {'B=4': 1, 'B=8': 1})
     """
     record = {}
-    for kernel, (n, shapes) in after.items():
-        n0, shapes0 = before.get(kernel, (0, {}))
+    for c, (n, keys) in after.items():
+        n0, keys0 = before.get(c, (0, {}))
         if n != n0:
-            record[kernel] = (n - n0, {
-                key: v - shapes0.get(key, 0) for key, v in shapes.items()
-                if v != shapes0.get(key, 0)})
+            record[c] = (n - n0, {key: v - keys0.get(key, 0)
+                                  for key, v in keys.items()
+                                  if v != keys0.get(key, 0)})
     return record
 
 
-def add_launches(record: dict, times: int = 1):
-    """Add `times` x `record` to the wrappers' counters; times=-1 takes a
-    record back out (a shape key left at 0 goes, as if never counted)."""
-    for kernel, (n, shapes) in record.items():
-        kernel.launches += times * n
-        for key, v in shapes.items():
-            left = kernel.shapes.get(key, 0) + times * v
+def add_counts(record: dict, times: int = 1):
+    """Add `times` x `record` to the counts; times=-1 takes a record back
+    out (a key left at 0 goes, as if never counted)."""
+    for c, (n, keys) in record.items():
+        total, by_key = _cuda.COUNTED[c]
+        setattr(c, total, getattr(c, total) + times * n)
+        into = getattr(c, by_key)
+        for key, v in keys.items():
+            left = into.get(key, 0) + times * v
             if left:
-                kernel.shapes[key] = left
+                into[key] = left
             else:
-                kernel.shapes.pop(key, None)
+                into.pop(key, None)
 
 
 # ---------------------------------------------------------------------------
@@ -148,13 +179,13 @@ class GraphPool:
 
 @dataclasses.dataclass
 class CapturedGraph:
-    """One signature's graph: its input buffers and output, the launches
-    one replay counts, and what the capture cost."""
+    """One signature's graph: its input buffers and output, what one replay
+    adds to the counts (count_record), and what the capture cost."""
 
     graph: torch.cuda.CUDAGraph
     inputs: tuple
     output: torch.Tensor
-    launches: dict
+    counts: dict
     warm_s: float          # the first run of fn, on a side stream
     capture_s: float       # fn recorded into the graph
     instantiate_s: float   # capture end: the executable graph made
@@ -163,7 +194,7 @@ class CapturedGraph:
         for buf, x in zip(self.inputs, inputs):
             buf.copy_(x)
         self.graph.replay()
-        add_launches(self.launches)
+        add_counts(self.counts)
         return self.output.clone()
 
 
@@ -195,8 +226,8 @@ def _capture(fn, static, inputs, pool: GraphPool, name: str) -> CapturedGraph:
             f"{name}: CUDA graph capture failed at {where}: "
             f"{type(first).__name__}: {first}") from exc
     finally:
-        record = launch_record(before, snapshot())
-        add_launches(record, -1)
+        record = count_record(before, snapshot())
+        add_counts(record, -1)
     t3 = time.perf_counter()
     if not isinstance(out, torch.Tensor):
         raise GraphCaptureError(f"{name}: returns {type(out).__name__}, "
@@ -247,10 +278,16 @@ class GraphedCall:
         return graph.replay(inputs)
 
     def captures(self) -> list[dict]:
-        """Per graph: the input shapes, the capture's seconds by part and
-        the kernel launches one replay counts."""
+        """Per graph: the input shapes, the capture's seconds by part, the
+        kernel launches one replay counts and what it adds to each
+        Counter."""
         return [{"inputs": [list(s) for s, _ in key[2]],
                  "warm_s": g.warm_s, "capture_s": g.capture_s,
                  "instantiate_s": g.instantiate_s,
-                 "launches_per_replay": sum(n for n, _ in g.launches.values())}
+                 "launches_per_replay": sum(
+                     n for c, (n, _) in g.counts.items()
+                     if not isinstance(c, Counter)),
+                 **{c.__name__ + "_per_replay": n
+                    for c, (n, _) in g.counts.items()
+                    if isinstance(c, Counter)}}
                 for key, g in self.graphs.items()]

@@ -7,6 +7,10 @@ port of concrete_tpu.parallel).
   contraction sharded over the ranks of a tp group, partial results
   combined with all_reduce.
 
+Each pipeline replays a captured CUDA graph on the card, its NCCL
+collectives inside (`mesh._compiled`), unless its tp group spans ranks on
+gloo, which runs it eager.
+
 `multihost` runs the design in several processes (torchrun-style
 environment, key replication from rank 0); `dryrun` is the port's twin of
 `__graft_entry__.dryrun_multichip` / `dryrun_multihost`.

@@ -217,12 +217,13 @@ def run_cases(out_dir: str, device: str, cases):
     """The rank target: each case on a mesh of its dp x tp (the whole
     group), its shard and the gathered batch bit for bit against the
     single-device call; saves every rank's shard ({i}.r{rank}.npy), the
-    gathered batch ({i}.npy) or the refusal ({i}.json) under out_dir."""
+    gathered batch ({i}.npy) or the refusal ({i}.json) under out_dir, and
+    whether each pipeline ran graphed (graphed.json, {i: fn.graphed})."""
     out = Path(out_dir)
     rank, world = dist.get_rank(), dist.get_world_size()
     dev = multihost.rank_device(device)
     rows = 4 * world
-    stats = []
+    stats, graphed = [], {}
     for i, case in enumerate(cases):
         name, config, pipeline, dp, tp = case
         mesh = pmesh.make_mesh(dp, tp, dev.type)
@@ -248,11 +249,14 @@ def run_cases(out_dir: str, device: str, cases):
             fn = pipeline_fn(pipeline, config, mesh)
             shard, full = multihost.check_pipeline(name, fn, mesh, inputs,
                                                    ref, stats)
+        graphed[i] = stats[-1]["graphed"]
         _save(out, f"{i}.r{rank}", shard)
         if rank == 0:
             _save(out, str(i), full)
-            print(f"  {name}: dp={dp} tp={tp} batch={rows} bit-identical OK",
-                  flush=True)
+            print(f"  {name}: dp={dp} tp={tp} batch={rows} bit-identical OK"
+                  f" ({'graphed' if graphed[i] else 'eager'})", flush=True)
+    if rank == 0:
+        (out / "graphed.json").write_text(json.dumps(graphed))
 
 
 def run_group(cases, out_dir: str, *, device=None,

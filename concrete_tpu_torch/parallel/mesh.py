@@ -14,6 +14,18 @@ over the tp group:
 - the keyswitch partials wrap mod 2^bits in the torus carrier (int32 /
   int64), like the sums inside one rank.
 
+Each factory returns what concrete_tpu's `jax.jit(shard_map(...))` is to
+the card: a GraphedCall (ops/graphs.py) that captures the pipeline once per
+signature and replays one CUDA graph per call, the keys (bsk, ksk8) read
+in place and narrowed to the rank's slice inside the graph, lut and lin
+copied in; NCCL collectives are captured with the rest, and `gather`'s
+`all_gather` runs outside the graph on the same communicator. Where the
+body makes a collective over a tp group of more than one rank on another
+backend (gloo: its collectives synchronise through the host, which no
+capture holds), the factory returns the pipeline eager. Which of the two
+is decided from the mesh when the pipeline is built and read in
+`fn.graphed`; on CPU tensors either runs the pipeline as it is.
+
 Every rank calls a pipeline with the same full inputs (the keys in the
 port's forms, `bsk_to_mxu` / `bsk_to_ntt` / `bsk_to_nuss` and
 `lwe.ksk_to_limbs`, and the whole batch). It takes its own dp rows and its
@@ -33,6 +45,13 @@ Example (one process, a world of one):
     >>> mesh = make_mesh(1, 1, "cpu")
     >>> mesh.mesh_dim_names, tuple(mesh.shape)
     (('dp', 'tp'), (1, 1))
+    >>> from ..core.bootstrap import ServerConfig
+    >>> cfg = ServerConfig(lwe_dimension=4, glwe_dimension=1,
+    ...                    polynomial_size=64, pbs_base_log=8, pbs_level=2,
+    ...                    ks_base_log=4, ks_level=3)
+    >>> fn = gate_pipeline_dp_tp_mxu(cfg, mesh)
+    >>> fn.graphed, fn.out_axes
+    (True, ('dp',))
     >>> dist.destroy_process_group()
 """
 
@@ -49,25 +68,27 @@ from ..core import checks
 from ..core import lwe as lwe_ops
 from ..core.bootstrap import ServerConfig, rotation_start, sample_extract
 from ..math import ntt, polynomial
+from ..ops import graphs
 from ..torus import carrier
 
 # bytes this process has handed to collectives over groups of more than one
-# rank since the last reset_sent_bytes() (the payload, not the transport's
-# traffic)
-_SENT = [0]
+# rank since the last reset_sent_bytes(), by collective (the payload, not
+# the transport's traffic); a replayed pipeline adds what its capture
+# counted, so the count is what the card sent
+SENT = graphs.Counter("sent_bytes")
 
 
 def sent_bytes() -> int:
-    return _SENT[0]
+    return SENT.total
 
 
 def reset_sent_bytes():
-    _SENT[0] = 0
+    SENT.reset()
 
 
-def _count(t: torch.Tensor, group=None):
+def _count(t: torch.Tensor, collective: str, group=None):
     if dist.get_world_size(group) > 1:
-        _SENT[0] += t.numel() * t.element_size()
+        SENT.add(t.numel() * t.element_size(), collective)
 
 
 def make_mesh(dp: int, tp: int = 1, device_type: str = "cuda",
@@ -120,7 +141,7 @@ def gather(out: torch.Tensor, mesh: DeviceMesh, axes=("dp",)) -> torch.Tensor:
     this rank's group along `axes`, in mesh order."""
     out = out.contiguous()
     parts = [torch.empty_like(out) for _ in range(dist.get_world_size())]
-    _count(out)
+    _count(out, "all_gather")
     dist.all_gather(parts, out)
     grid = mesh.mesh
     if axes == ("dp",):
@@ -138,9 +159,24 @@ def _tp(mesh: DeviceMesh):
 
 
 def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    _count(t, group)
+    _count(t, "all_reduce", group)
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
+
+
+def _compiled(run, mesh: DeviceMesh, name: str, collective: bool):
+    """`run` (fn(bsk, ksk8, lut, lin), its `out_axes` set) as the factory
+    returns it: a GraphedCall with the two keys static, or, where the body
+    makes a collective (`collective`) over a tp group of more than one rank
+    whose backend is not NCCL, `run` itself, eager. Either carries
+    `out_axes` and `graphed`. One graph pool per pipeline."""
+    size, _, group = _tp(mesh)
+    if collective and size > 1 and dist.get_backend(group) != "nccl":
+        run.graphed = False
+        return run
+    call = graphs.GraphedCall(run, 2, name=name)
+    call.out_axes, call.graphed = run.out_axes, True
+    return call
 
 
 def _sum_over(mesh: DeviceMesh):
@@ -163,7 +199,8 @@ def gate_pipeline_dp(cfg: ServerConfig, mesh: DeviceMesh, backend: str = "ntt"):
     backend "mxu" runs bootstrap_mxu.bootstrap_keyswitch_mxu (K2, K1, int8
     product, at large batch K3), "ntt" bootstrap_ntt.bootstrap_keyswitch
     (K9 on the u32 torus with two primes). fn(bsk, ksk8, lut, lin) returns
-    this rank's rows (fn.out_axes = ("dp", "tp"))."""
+    this rank's rows (fn.out_axes = ("dp", "tp")); it makes no collective,
+    so it is graphed on any mesh."""
     if backend == "mxu":
         bsx.MxuPlan.from_config(cfg)
         bks = bsx.bootstrap_keyswitch_mxu
@@ -177,7 +214,8 @@ def gate_pipeline_dp(cfg: ServerConfig, mesh: DeviceMesh, backend: str = "ntt"):
         return bks(cfg, bsk, ksk8, lut, shard(lin, mesh, (("dp", "tp"),)))
 
     run.out_axes = ("dp", "tp")
-    return run
+    return _compiled(run, mesh, f"gate_pipeline_dp ({backend})",
+                     collective=False)
 
 
 # ---------------------------------------------------------------------------
@@ -245,7 +283,8 @@ def gate_pipeline_dp_tp(cfg: ServerConfig, mesh: DeviceMesh):
 
     Raises what concrete_tpu raises at construction for a configuration
     outside the ntt envelope (ServerConfig.primes), and ShardingMismatch
-    unless tp divides pbs_level. fn.out_axes = ("dp",)."""
+    unless tp divides pbs_level. fn.out_axes = ("dp",); graphed unless the
+    tp group has more than one rank on a backend other than NCCL."""
     sp = ntt.make_stacked_plans(cfg.polynomial_size, cfg.primes)
     tp, idx, group = _tp(mesh)
     checks.check_tp_divides(
@@ -269,7 +308,7 @@ def gate_pipeline_dp_tp(cfg: ServerConfig, mesh: DeviceMesh):
         return _keyswitch_tp(cfg, ksk8, big, mesh)
 
     run.out_axes = ("dp",)
-    return run
+    return _compiled(run, mesh, "gate_pipeline_dp_tp", collective=True)
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +329,7 @@ def gate_pipeline_dp_tp_mxu(cfg: ServerConfig, mesh: DeviceMesh):
     and the sum as hooks): at batches where auto_defer holds (u32; B >=
     8192 at TPU128) the recombine is folded into the next step's K3. Both
     tori, mxu_limb_drop included. ShardingMismatch unless tp divides R.
-    fn.out_axes = ("dp",)."""
+    fn.out_axes = ("dp",); graphed as gate_pipeline_dp_tp is."""
     plan = bsx.MxuPlan.from_config(cfg)
     tp, idx, _ = _tp(mesh)
     checks.check_tp_divides(
@@ -309,7 +348,7 @@ def gate_pipeline_dp_tp_mxu(cfg: ServerConfig, mesh: DeviceMesh):
                              mesh)
 
     run.out_axes = ("dp",)
-    return run
+    return _compiled(run, mesh, "gate_pipeline_dp_tp_mxu", collective=True)
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +368,7 @@ def gate_pipeline_dp_tp_nuss(cfg: ServerConfig, mesh: DeviceMesh,
     recombine (K5 / K6) run replicated in the tp group: the single-device
     loop (bootstrap_nuss.rotate_nuss) with the rank's blocks and the sum as
     hooks. Both tori. ShardingMismatch unless tp divides R'. fn.out_axes =
-    ("dp",)."""
+    ("dp",); graphed as gate_pipeline_dp_tp is."""
     plan = bsn.NussPlan.from_config(cfg, l)
     tp, idx, _ = _tp(mesh)
     checks.check_tp_divides(
@@ -357,4 +396,4 @@ def gate_pipeline_dp_tp_nuss(cfg: ServerConfig, mesh: DeviceMesh,
                              mesh)
 
     run.out_axes = ("dp",)
-    return run
+    return _compiled(run, mesh, "gate_pipeline_dp_tp_nuss", collective=True)

@@ -94,7 +94,7 @@ def replicate_from_host0(t: torch.Tensor) -> torch.Tensor:
     """The set-up key replication: rank 0's tensor broadcast to every rank,
     in place (the others pass a placeholder of its shape and dtype): once
     per key, not per call."""
-    pmesh._count(t)
+    pmesh._count(t, "broadcast")
     dist.broadcast(t, src=0)
     return t
 
@@ -243,20 +243,29 @@ def orientations(n_processes: int, ranks_per_process: int):
              torch.arange(world).reshape(n_processes, -1).T.contiguous()))
 
 
-def check_pipeline(tag, fn, mesh, inputs, ref, stats):
-    """One timed call of `fn` on every rank: its shard equal to its rows of
-    the single-device `ref`, the gathered batch equal to `ref`; appends the
-    rank's seconds (the call) and bytes sent (the call and the gather) to
-    `stats`. Returns (shard, batch)."""
-    pmesh.reset_sent_bytes()
-    dev = ref.device
+def _timed(fn, inputs, dev):
+    """(seconds, output) of one call of fn, synchronised on the card."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     out = fn(*inputs)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    secs = time.perf_counter() - t0
+    return time.perf_counter() - t0, out
+
+
+def check_pipeline(tag, fn, mesh, inputs, ref, stats):
+    """A first call of `fn` (a graphed pipeline captures its graph there on
+    the card), then one timed call on every rank: its shard equal to its
+    rows of the single-device `ref`, the gathered batch equal to `ref`;
+    appends to `stats` the rank's seconds (the first call and the timed
+    one), the bytes the timed call and the gather hand to collectives,
+    whether fn is graphed and its graphs' capture seconds by part
+    (GraphedCall.captures). Returns (shard, batch)."""
+    dev = ref.device
+    first_s, _ = _timed(fn, inputs, dev)
+    pmesh.reset_sent_bytes()
+    secs, out = _timed(fn, inputs, dev)
     if not torch.equal(out, pmesh.shard(ref, mesh, (fn.out_axes,))):
         raise AssertionError(f"{tag}: rank {dist.get_rank()}'s shard differs "
                              "from the single-device call")
@@ -265,7 +274,9 @@ def check_pipeline(tag, fn, mesh, inputs, ref, stats):
     if not torch.equal(full, ref):
         raise AssertionError(f"{tag}: the gathered batch differs")
     stats.append({"tag": tag, "rank": dist.get_rank(), "seconds": secs,
-                  "sent_bytes": sent, "rows": int(out.shape[0])})
+                  "first_call_s": first_s, "sent_bytes": sent,
+                  "rows": int(out.shape[0]), "graphed": fn.graphed,
+                  "captures": fn.captures() if fn.graphed else []})
     return out, full
 
 
@@ -413,8 +424,11 @@ def run(n_processes: int = 2, ranks_per_process: int = 4,
     a card (LOCAL_RANK modulo the cards present) unless `device` is "cpu";
     `placement` picks the backend (more ranks than cards need
     backend="gloo"). `batch` defaults to 4 rows a rank. Returns every
-    rank's stats: per pipeline call its seconds, the bytes it handed to
-    collectives and the bytes the plan predicts."""
+    rank's stats: per pipeline its timed call's seconds (after a first
+    call, where a graphed pipeline captures), the bytes that call handed
+    to collectives and the bytes the plan predicts, whether it ran
+    graphed (the dp-across-hosts tier, tp=1 on a host of one rank, does;
+    tp across gloo processes runs eager) and its capture seconds."""
     kind, backend = placement(device, backend,
                               n_processes * ranks_per_process)
     with tempfile.TemporaryDirectory() as out_dir:

@@ -175,12 +175,12 @@ def test_launch_accounting_of_a_capture():
     before = graphs.snapshot()
     for b in (8, 8, 16):                    # what the capture records
         _cuda.count_launch(kernel, B=b)
-    record = graphs.launch_record(before, graphs.snapshot())
+    record = graphs.count_record(before, graphs.snapshot())
     assert record[kernel] == (3, {"B=8": 2, "B=16": 1})
-    graphs.add_launches(record, -1)
+    graphs.add_counts(record, -1)
     assert (kernel.launches, kernel.shapes) == (1, {"B=8": 1})
     for _ in range(2):                      # two replays
-        graphs.add_launches(record)
+        graphs.add_counts(record)
     assert (kernel.launches, kernel.shapes) == (7, {"B=8": 5, "B=16": 2})
     assert all(k is kernel for k in record)  # other counters unrecorded
 

@@ -8,7 +8,10 @@ One module-scoped fixture spawns three groups (4 ranks: dp x tp in 4x1,
 against the port's own single-device call) and leave their outputs in a
 temp dir. Every case is then compared here with the JAX package's call on
 the same numpy inputs (`dryrun.case_inputs`), computed once per
-(configuration, backend, batch). Tolerance: none.
+(configuration, backend, batch). Tolerance: none. Each pipeline's
+`graphed` (recorded by run_cases) is held to the rule of mesh._compiled:
+graphed where it makes no collective (dp) or its tp group has one rank,
+eager for tp > 1 on gloo.
 """
 
 import dataclasses
@@ -144,6 +147,8 @@ def test_sharded_pipeline_matches_concrete_tpu(outputs, world, i, case):
         np.testing.assert_array_equal(
             np.load(out / f"{i}.r{rank}.npy"),
             want[_rows_of_rank(rank, dp, tp, pipeline, batch)])
+    graphed = json.loads((out / "graphed.json").read_text())[str(i)]
+    assert graphed == (pipeline.startswith("dp ") or tp == 1)
 
 
 @pytest.mark.parametrize("pid,local", [(0, 0), (0, 1), (1, 0), (1, 1)])
