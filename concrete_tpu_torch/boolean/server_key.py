@@ -15,7 +15,11 @@ tensors [..., n+1] and return int32 tensors on the key's device. On the
 card each gate call replays one captured CUDA graph per (gate, padded
 tier) holding the whole gate (_gate_pipeline, _mux_pipeline: concrete_tpu's
 jitted pipelines), made at warmup or at the tier's first call
-(ops/graphs.py); on the CPU the pipelines run as they are.
+(ops/graphs.py); on the CPU the pipelines run as they are. Under a
+torch.profiler session each gate call is a span `gate.<gate>` holding
+`gate.pad` (the inputs onto the device, broadcast, flattened and padded)
+and `gate.cut`; `GATE_ROWS` counts every call's request rows and padding
+rows.
 
 Example (AND and XOR on tiny insecure parameters, on the CPU):
     >>> from concrete_tpu_torch import boolean
@@ -67,6 +71,11 @@ _GATE_LIN = {
     "xor": (lambda a, b: (a + b) * 2, _QUARTER),
     "xnor": (lambda a, b: (-a - b) * 2, _NEG_QUARTER),
 }
+
+
+_GATE_SPANS = {gate: f"gate.{gate}" for gate in _GATE_LIN}
+# rows of every gate call: "request" (asked for) and "padding" (added)
+GATE_ROWS = graphs.Counter("gate_rows")
 
 
 # the ServerConfig fields of the npz key format (u32 torus, exact)
@@ -251,19 +260,24 @@ class ServerKey:
         """Call `fn` on the ciphertext batches broadcast together, flattened
         and zero-padded to `_pad_size` rows; the padding rows bootstrap
         harmlessly and are cut off."""
-        cts = torch.broadcast_tensors(*[as_torus(c, self.device) for c in cts])
-        lead = cts[0].shape[:-1]
-        flats = [c.reshape(-1, c.shape[-1]) for c in cts]
-        b = flats[0].shape[0]
-        if b == 0:
-            return torch.zeros(lead + cts[0].shape[-1:], dtype=torch.int32,
-                               device=self.device)
-        padded = self._pad_size(b)
-        if padded != b:
-            flats = [torch.cat([f, f.new_zeros((padded - b, f.shape[1]))])
-                     for f in flats]
+        with graphs.span("gate.pad"):
+            cts = torch.broadcast_tensors(*[as_torus(c, self.device)
+                                            for c in cts])
+            lead = cts[0].shape[:-1]
+            flats = [c.reshape(-1, c.shape[-1]) for c in cts]
+            b = flats[0].shape[0]
+            if b == 0:
+                return torch.zeros(lead + cts[0].shape[-1:],
+                                   dtype=torch.int32, device=self.device)
+            padded = self._pad_size(b)
+            if padded != b:
+                flats = [torch.cat([f, f.new_zeros((padded - b, f.shape[1]))])
+                         for f in flats]
+        GATE_ROWS.add(b, "request")
+        GATE_ROWS.add(padded - b, "padding")
         out = fn(*flats)
-        return out[:b].reshape(lead + out.shape[-1:])
+        with graphs.span("gate.cut"):
+            return out[:b].reshape(lead + out.shape[-1:])
 
     def warmup(self, batch_sizes=(2048,), gates=("and",), mux=False):
         """Build the CUDA kernels (on a CUDA key) and make each (gate, batch
@@ -329,11 +343,12 @@ class ServerKey:
         return self._graphs[slot]
 
     def _run_gate(self, gate: str, ct_left, ct_right) -> torch.Tensor:
-        call = self._graphed(
-            gate, _gate_pipeline(self.cfg, self.resolved_backend(), gate))
-        keys = (self._bootstrap_keys(), self.ksk8, self._lut())
-        return self._padded_call(lambda a, b: call(*keys, a, b),
-                                 ct_left, ct_right)
+        with graphs.span(_GATE_SPANS[gate]):
+            call = self._graphed(
+                gate, _gate_pipeline(self.cfg, self.resolved_backend(), gate))
+            keys = (self._bootstrap_keys(), self.ksk8, self._lut())
+            return self._padded_call(lambda a, b: call(*keys, a, b),
+                                     ct_left, ct_right)
 
     def and_(self, ct_left, ct_right):
         return self._run_gate("and", ct_left, ct_right)
@@ -360,11 +375,12 @@ class ServerKey:
     def mux(self, ct_condition, ct_then, ct_else):
         """(c ? t : e) via two PBS sharing one blind rotation batch, then one
         keyswitch (server_key/mod.rs:197-279)."""
-        call = self._graphed("mux", _mux_pipeline(self.cfg,
-                                                  self.resolved_backend()))
-        keys = (self._bootstrap_keys(), self.ksk8, self._lut())
-        return self._padded_call(lambda c, t, e: call(*keys, c, t, e),
-                                 ct_condition, ct_then, ct_else)
+        with graphs.span("gate.mux"):
+            call = self._graphed("mux", _mux_pipeline(
+                self.cfg, self.resolved_backend()))
+            keys = (self._bootstrap_keys(), self.ksk8, self._lut())
+            return self._padded_call(lambda c, t, e: call(*keys, c, t, e),
+                                     ct_condition, ct_then, ct_else)
 
 
 def _fresh_graphs() -> dict:

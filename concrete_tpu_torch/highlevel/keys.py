@@ -8,7 +8,9 @@ derive their evaluation forms (toeplitz or Nussbaumer rings, NTT spectra,
 int8 limb planes) on `device` at first use: the GPU unless the caller asks for the
 CPU. Key generation draws from the AES-CTR streams, so equal seeds give
 concrete_tpu's keys byte for byte (the BSK's products run on `device`);
-keys saved by concrete_tpu load here unchanged (`load`).
+keys saved by concrete_tpu load here unchanged (`load`). The run_* calls
+put their host inputs on the device in the span `highlevel.to_device`
+(ops/graphs.span: recorded under a torch.profiler session).
 
 Example (a tiny PBS + keyswitch on the CPU):
     >>> import numpy as np
@@ -253,8 +255,9 @@ class LWEBSK:
         """PBS of `cts` [..., n+1] against `accumulator` [k+1, N] (u64 numpy
         or int64 tensors) -> [..., k*N+1] int64 on the device, replayed
         from the key's graph of this signature on the card."""
-        acc = as_torus(accumulator, self.device, BITS)
-        cts = as_torus(cts, self.device, BITS)
+        with graphs.span("highlevel.to_device"):
+            acc = as_torus(accumulator, self.device, BITS)
+            cts = as_torus(cts, self.device, BITS)
         return self._graphed(None)(self._bootstrap_key(), acc, cts)
 
     def run_bootstrap_many(self, accumulator, cts,
@@ -262,8 +265,9 @@ class LWEBSK:
         """Multi-LUT PBS: one blind rotation, 2^lcl packed functions ->
         [2^lcl, ..., k*N+1] int64 on the device (a graph per signature and
         lut_count_log on the card)."""
-        acc = as_torus(accumulator, self.device, BITS)
-        cts = as_torus(cts, self.device, BITS)
+        with graphs.span("highlevel.to_device"):
+            acc = as_torus(accumulator, self.device, BITS)
+            cts = as_torus(cts, self.device, BITS)
         return self._graphed(lut_count_log)(self._bootstrap_key(), acc, cts)
 
     @classmethod
@@ -369,9 +373,10 @@ class LWEKSK:
     def run_keyswitch(self, cts) -> torch.Tensor:
         """Keyswitch a [..., n_in+1] batch (u64 numpy or int64 tensor) ->
         [..., n_out+1] int64 on the device."""
+        with graphs.span("highlevel.to_device"):
+            cts = as_torus(cts, self.device, BITS)
         return lwe_ops.keyswitch_prepared(
-            self.limbs, as_torus(cts, self.device, BITS),
-            base_log=self.base_log, level_count=self.level)
+            self.limbs, cts, base_log=self.base_log, level_count=self.level)
 
     @classmethod
     def new(cls, sk_before: LWESecretKey, sk_after: LWESecretKey,

@@ -7,6 +7,14 @@ per-slot bootstrap). The slot axis is just another batch axis:
 ciphertext arithmetic is one vectorized array op; only the (cheap, float)
 encoder bookkeeping iterates per slot.
 
+Under a torch.profiler session the batched bootstrap and the keyswitch are
+spans (ops/graphs.span): `highlevel.bootstrap` holds `highlevel.lut` (the
+encoder check, the test polynomial, the padding shift), the device call and
+`highlevel.to_host` (the result to numpy, the wait for the device
+included), and `highlevel.slots` (the per-slot encoders and variances);
+`highlevel.keyswitch` holds its device call, `highlevel.to_host` and
+`highlevel.slots` (the copy and the per-slot noise estimates).
+
 Example:
     >>> from concrete_tpu_torch.highlevel import VectorLWE, Encoder, LWESecretKey, LWEParams
     >>> sk = LWESecretKey.new(LWEParams(dimension=32, log2_std_dev=-40), secret_seed=1)
@@ -25,6 +33,7 @@ import numpy as np
 from .. import npe
 from ..csprng import EncryptionRandomGenerator
 from ..dispersion import Variance
+from ..ops import graphs
 from ..torus import to_numpy
 from . import errors
 from .encoder import BITS, DTYPE, Encoder
@@ -476,21 +485,23 @@ class VectorLWE:
     # -- keyswitch / bootstrap -------------------------------------------------------
 
     def keyswitch(self, ksk: LWEKSK) -> "VectorLWE":
-        out_data = to_numpy(ksk.run_keyswitch(self.data))
-        out = self.copy()
-        out.data = out_data
-        for i in range(self.nb_ciphertexts):
-            v = npe.estimate_keyswitch_noise_with_constant_terms(
-                self.dimension,
-                Variance(float(self.variances[i])),
-                Variance(ksk.variance),
-                ksk.base_log,
-                ksk.level,
-                BITS,
-            ).get_variance()
-            out.variances[i] = v
-            out.encoders[i].update_precision_from_variance(v)
-        return out
+        with graphs.span("highlevel.keyswitch"):
+            out_data = _to_host(ksk.run_keyswitch(self.data))
+            with graphs.span("highlevel.slots"):
+                out = self.copy()
+                out.data = out_data
+                for i in range(self.nb_ciphertexts):
+                    v = npe.estimate_keyswitch_noise_with_constant_terms(
+                        self.dimension,
+                        Variance(float(self.variances[i])),
+                        Variance(ksk.variance),
+                        ksk.base_log,
+                        ksk.level,
+                        BITS,
+                    ).get_variance()
+                    out.variances[i] = v
+                    out.encoders[i].update_precision_from_variance(v)
+            return out
 
     def bootstrap_nth(self, bsk: LWEBSK, n: int) -> "VectorLWE":
         """Bootstrap slot n with the identity (vector_lwe:1969)."""
@@ -522,25 +533,30 @@ class VectorLWE:
         Requires identical input encoders across slots (the common case);
         the whole vector rides one CMux chain as a batch.
         """
-        enc0 = self.encoders[0]
-        for e in self.encoders:
-            if (not _deltas_close(e.delta, enc0.delta)
-                    or e.nb_bit_padding != enc0.nb_bit_padding
-                    or e.o != enc0.o):
-                raise errors.DeltaError(e.delta, enc0.delta)
-        lut = generate_functional_lut(bsk, enc0, encoder_output, f)
-        accumulator = _accumulator(bsk, lut)
-        data = self.data
-        if enc0.nb_bit_padding > 1:
-            data = (data << DTYPE(enc0.nb_bit_padding - 1)).astype(DTYPE)
-        out_data = to_numpy(bsk.run_bootstrap(accumulator, data))
-        new_var = bsk.bootstrap_output_variance(self.dimension)
-        encs = []
-        for _ in range(self.nb_ciphertexts):
-            e = encoder_output.copy()
-            e.update_precision_from_variance(new_var)
-            encs.append(e)
-        return VectorLWE(out_data, encs, np.full(self.nb_ciphertexts, new_var))
+        with graphs.span("highlevel.bootstrap"):
+            with graphs.span("highlevel.lut"):
+                enc0 = self.encoders[0]
+                for e in self.encoders:
+                    if (not _deltas_close(e.delta, enc0.delta)
+                            or e.nb_bit_padding != enc0.nb_bit_padding
+                            or e.o != enc0.o):
+                        raise errors.DeltaError(e.delta, enc0.delta)
+                lut = generate_functional_lut(bsk, enc0, encoder_output, f)
+                accumulator = _accumulator(bsk, lut)
+                data = self.data
+                if enc0.nb_bit_padding > 1:
+                    data = (data << DTYPE(enc0.nb_bit_padding - 1)).astype(
+                        DTYPE)
+            out_data = _to_host(bsk.run_bootstrap(accumulator, data))
+            with graphs.span("highlevel.slots"):
+                new_var = bsk.bootstrap_output_variance(self.dimension)
+                encs = []
+                for _ in range(self.nb_ciphertexts):
+                    e = encoder_output.copy()
+                    e.update_precision_from_variance(new_var)
+                    encs.append(e)
+                return VectorLWE(out_data, encs,
+                                 np.full(self.nb_ciphertexts, new_var))
 
     # -- serialization ------------------------------------------------------------
 
@@ -561,6 +577,13 @@ class VectorLWE:
         d = np.load(path, allow_pickle=False)
         encs = [Encoder.from_json(s) for s in json.loads(str(d["encoders"]))]
         return cls(data=d["data"], encoders=encs, variances=d["variances"])
+
+
+def _to_host(t) -> np.ndarray:
+    """A device result as numpy, in the span `highlevel.to_host`: the copy
+    and the wait for the device work that makes `t`."""
+    with graphs.span("highlevel.to_host"):
+        return to_numpy(t)
 
 
 def _deltas_close(d1: float, d2: float) -> bool:

@@ -31,6 +31,17 @@ to every registered count (``count_record``), the capture's own counts are
 taken back out, and every replay adds the record (``add_counts``): the
 counts are those of the work the card did.
 
+``span(name)`` names a stretch of host work for torch.profiler: while a
+profiler session runs, it is a ``record_function`` in the trace (on the
+profiler's clock, nested in whatever span is open) and adds its
+nanoseconds and one call to ``SPAN_NS`` and ``SPAN_CALLS`` under its name;
+with no session, and inside a capture, it does nothing. Spans sit at layer
+boundaries on the host, never in a captured function or a kernel wrapper;
+here: ``graph.copy_in``, ``graph.replay`` (the graph launch alone) and
+``graph.clone_out`` in every replay, ``graph.capture`` around a capture.
+``CAPTURE_NS`` keeps each capture's seconds (warm run, capture,
+instantiation), by the call's name, as nanoseconds.
+
 Example (on the CPU the wrapped function runs as it is):
     >>> import torch
     >>> double = GraphedCall(lambda key, x: key * x, 1)
@@ -40,6 +51,7 @@ Example (on the CPU the wrapped function runs as it is):
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -129,6 +141,53 @@ def add_counts(record: dict, times: int = 1):
 
 
 # ---------------------------------------------------------------------------
+# spans
+# ---------------------------------------------------------------------------
+
+SPAN_NS = Counter("span_ns")
+SPAN_CALLS = Counter("span_calls")
+CAPTURE_NS = Counter("capture_ns")
+
+_OFF = contextlib.nullcontext()
+# set by _capture around its graph capture: a span there would put its
+# nanoseconds into the capture's count record, which every replay adds
+_capturing = False
+
+
+class _Span:
+    __slots__ = ("name", "_rf", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        self._t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns() - self._t0
+        self._rf.__exit__(*exc)
+        SPAN_NS.add(ns, self.name)
+        SPAN_CALLS.add(1, self.name)
+
+
+def span(name: str):
+    """A context manager naming a stretch of host work (see the module
+    docstring): recorded only while a torch.profiler session runs, and
+    never inside a capture; else one shared no-op.
+
+    >>> with span("example"):
+    ...     pass
+    >>> "example" in SPAN_CALLS.by_key
+    False
+    """
+    if _capturing or not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name)
+
+
+# ---------------------------------------------------------------------------
 # capture and replay
 # ---------------------------------------------------------------------------
 
@@ -191,14 +250,18 @@ class CapturedGraph:
     instantiate_s: float   # capture end: the executable graph made
 
     def replay(self, inputs) -> torch.Tensor:
-        for buf, x in zip(self.inputs, inputs):
-            buf.copy_(x)
-        self.graph.replay()
+        with span("graph.copy_in"):
+            for buf, x in zip(self.inputs, inputs):
+                buf.copy_(x)
+        with span("graph.replay"):
+            self.graph.replay()
         add_counts(self.counts)
-        return self.output.clone()
+        with span("graph.clone_out"):
+            return self.output.clone()
 
 
 def _capture(fn, static, inputs, pool: GraphPool, name: str) -> CapturedGraph:
+    global _capturing
     device = inputs[0].device if inputs else static[0].device
     current = torch.cuda.current_stream(device)
     bufs = tuple(x.clone() for x in inputs)   # outside the pool, kept
@@ -213,6 +276,7 @@ def _capture(fn, static, inputs, pool: GraphPool, name: str) -> CapturedGraph:
     graph = torch.cuda.CUDAGraph()
     stream = _capture_stream(device)
     before = snapshot()
+    _capturing = True
     try:
         # the outer context restores the caller's stream even when the
         # capture's end raises (the graph context then leaves its own open)
@@ -226,12 +290,14 @@ def _capture(fn, static, inputs, pool: GraphPool, name: str) -> CapturedGraph:
             f"{name}: CUDA graph capture failed at {where}: "
             f"{type(first).__name__}: {first}") from exc
     finally:
+        _capturing = False
         record = count_record(before, snapshot())
         add_counts(record, -1)
     t3 = time.perf_counter()
     if not isinstance(out, torch.Tensor):
         raise GraphCaptureError(f"{name}: returns {type(out).__name__}, "
                                 "expected one tensor")
+    CAPTURE_NS.add(round((t3 - t0) * 1e9), name)
     return CapturedGraph(graph, bufs, out, record, t1 - t0, t2 - t1, t3 - t2)
 
 
@@ -268,7 +334,9 @@ class GraphedCall:
                tuple((tuple(x.shape), x.dtype) for x in inputs))
         graph = self.graphs.get(key)
         if graph is None:
-            graph = _capture(self.fn, static, inputs, self.pool, self.name)
+            with span("graph.capture"):
+                graph = _capture(self.fn, static, inputs, self.pool,
+                                 self.name)
             self.graphs[key] = graph
             for t in static:    # the ids stay the tensors' own while kept
                 weakref.finalize(t, self.graphs.pop, key, None)

@@ -6,7 +6,7 @@ of a call (32-bit integer instructions by pipe, int8 tensor operations and
 HBM bytes) against the card's peak rates gives the least time the card
 could take (`Roofline.bound_seconds`, `bound_ms`); `time_ms` (device time,
 a CUDA graph between CUDA events), `median_s` and `measure` (synchronised
-host medians), `profile_call` and `trace` (torch.profiler) measure it.
+host medians) and `profile_call` (torch.profiler) measure it.
 chip_smoke.py takes its bounds and timers from here.
 
 The rates are the H100 SXM's published peaks: HBM at 3.35 TB/s; the int8
@@ -32,7 +32,6 @@ Example:
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import statistics
 import time
@@ -314,20 +313,6 @@ def measure(fn, *args, reps: int = 3) -> float:
     return median_s(lambda: fn(*args), reps)
 
 
-@contextlib.contextmanager
-def trace(path: str):
-    """torch.profiler trace of the block (CPU and CUDA activity), written
-    to `path` as a Chrome trace (chrome://tracing, Perfetto)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(path)
-
-
 # device kernels by name, as the profiler shows them (demangled): the
 # port's, then the int8 GEMM that torch._int_mm runs
 KERNEL_KINDS = (("ntt_cmux_kernel", "K9 ntt_cmux"),
@@ -345,9 +330,8 @@ KERNEL_KINDS = (("ntt_cmux_kernel", "K9 ntt_cmux"),
 
 def profile_call(fn, gemm_ops=None) -> dict:
     """One call of `fn` under torch.profiler: device time summed by kernel
-    kind (KERNEL_KINDS), the device operations it saw (kernels, copies,
-    memsets) and the device idle share of the call's wall time (the
-    profiler adds host overhead, so the idle share is an upper bound).
+    kind (KERNEL_KINDS) and the device operations it saw (kernels, copies,
+    memsets).
     With `gemm_ops`, the int8 operations of the call's CMux products, also
     the int8 GEMM's rate in TOP/s (its device time includes a gate's
     keyswitch product). CUDA only."""
@@ -367,9 +351,8 @@ def profile_call(fn, gemm_ops=None) -> dict:
                     "other (torch elementwise, copies)")
         kinds[kind] = kinds.get(kind, 0.0) + evt.self_device_time_total / 1e3
         events += evt.count
-    busy = sum(kinds.values())
-    out = {"wall_ms": wall_ms, "device_ms": busy,
-           "idle_share": 1.0 - busy / wall_ms, "device_events": events}
+    out = {"wall_ms": wall_ms, "device_ms": sum(kinds.values()),
+           "device_events": events}
     if gemm_ops and kinds.get("int8 GEMM"):
         out["gemm_tops"] = gemm_ops / (kinds["int8 GEMM"] * 1e-3) / 1e12
     out["device_ms_by_kind"] = dict(sorted(kinds.items(), key=lambda kv: -kv[1]))

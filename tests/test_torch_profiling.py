@@ -116,10 +116,3 @@ def test_median_and_measure_on_the_cpu():
     assert pf.measure(lambda x: calls.append(x), 3, reps=3) >= 0.0
     assert calls == [3] * 4
     assert pf.median_s(lambda: None, reps=3) >= 0.0
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    path = tmp_path / "trace.json"
-    with pf.trace(str(path)):
-        torch.ones(8).sum()
-    assert path.exists() and path.stat().st_size > 0
