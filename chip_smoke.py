@@ -158,13 +158,13 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           (tp = 1) and the tp tier eager (gloo), as they must be.
           H3: the seven examples' main() at their published parameters and
           sizes on the card, each checking its own answers, its launches a
-          path of their own (K1, K4 and K9 must launch).
+          path of their own (K1, K4, recombine_acc and K9 must launch).
 
 The bounds and timers (bound_ms, time_ms, median_s, profile_call, the
 instruction counts of K4 and K9) come from concrete_tpu_torch.profiling.
 Every phase logs its kernels' launches per shape key (launches_by_shape);
-after the phases, each phase-A row of K4-K7 is logged beside the
-launches of its shape key on the main paths (A_launches).
+after the phases, each phase-A row of K4-K7 and recombine_acc is logged
+beside the launches of its shape key on the main paths (A_launches).
 The last lines are the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line and {"ok": true, "device": {...}}. Any failure
 raises, so the exit code is non-zero and no result line is printed.
@@ -241,6 +241,8 @@ REPLACES = {
     "rotdig": (MXU_SOURCE, "concrete_tpu/core/bootstrap_mxu.py:449"),
     "rotdig_recombine": (MXU_SOURCE, "concrete_tpu/core/bootstrap_mxu.py:599"),
     "rotdig64": (MXU_SOURCE, "concrete_tpu/core/bootstrap_mxu.py:531"),
+    # none: the JAX package's recombine is an XLA-fused elementwise loop
+    "recombine_acc": (MXU_SOURCE, None),
     "recombine_inv": (NUSS_SOURCE, "concrete_tpu/core/bootstrap_nuss.py:438"),
     "recombine_inv64": (NUSS_SOURCE, "concrete_tpu/core/bootstrap_nuss.py:657"),
     "rotdig_fwd_nuss": (NUSS_SOURCE, "concrete_tpu/core/bootstrap_nuss.py:833"),
@@ -252,24 +254,28 @@ REPLACES = {
 # D: the Nussbaumer backend on both tori, E: the ntt backend and the fused
 # toeplitz step, F: the 8-bit adder on ntt and on mxu, G: the fixture grid,
 # the full-width noise entries and VectorRLWE)
-PATH_KERNELS = {"B": ("build_tables", "rotdig", "rotdig_recombine"),
-                "C": ("build_tables", "rotdig64"),
+PATH_KERNELS = {"B": ("build_tables", "rotdig", "rotdig_recombine",
+                      "recombine_acc"),
+                "C": ("build_tables", "rotdig64", "recombine_acc"),
                 "D": ("build_tables", "recombine_inv", "recombine_inv64",
                       "rotdig_fwd_nuss"),
                 "E": ("ntt_cmux", "fused_external_product_acc"),
-                "F": ("ntt_cmux", "build_tables", "rotdig", "rotdig_recombine"),
-                "G": ("build_tables", "rotdig", "rotdig64", "recombine_inv",
-                      "recombine_inv64", "rotdig_fwd_nuss", "ntt_cmux"),
+                "F": ("ntt_cmux", "build_tables", "rotdig", "rotdig_recombine",
+                      "recombine_acc"),
+                "G": ("build_tables", "rotdig", "rotdig64", "recombine_acc",
+                      "recombine_inv", "recombine_inv64", "rotdig_fwd_nuss",
+                      "ntt_cmux"),
                 # H1: the pipelines' timed calls, H3: the examples (H2's
                 # ranks are other processes)
-                "H1": ("build_tables", "rotdig", "recombine_inv",
-                       "rotdig_fwd_nuss", "ntt_cmux"),
-                "H3": ("build_tables", "rotdig64", "ntt_cmux")}
+                "H1": ("build_tables", "rotdig", "recombine_acc",
+                       "recombine_inv", "rotdig_fwd_nuss", "ntt_cmux"),
+                "H3": ("build_tables", "rotdig64", "recombine_acc",
+                       "ntt_cmux")}
 # phase H1: the kernels each pipeline must launch in its own timed calls
 H1_KERNELS = {
-    "gate_pipeline_dp mxu": ("build_tables", "rotdig"),
+    "gate_pipeline_dp mxu": ("build_tables", "rotdig", "recombine_acc"),
     "gate_pipeline_dp ntt": ("ntt_cmux",),
-    "gate_pipeline_dp_tp_mxu": ("build_tables", "rotdig"),
+    "gate_pipeline_dp_tp_mxu": ("build_tables", "rotdig", "recombine_acc"),
     "gate_pipeline_dp_tp (ntt, level split)": (),
     "gate_pipeline_dp_tp_nuss": ("build_tables", "recombine_inv",
                                  "rotdig_fwd_nuss"),
@@ -596,7 +602,26 @@ def kernel_cases(dev):
                   lambda p=plan, s=s, acc=acc, a=a_hat: bsx.rotdig_recombine(p, s, acc, a),
                   lambda p=plan, s=s, acc=acc, a=a_hat: bsx.rotdig_recombine_plain(p, s, acc, a),
                   (s, acc, a_hat)))
-    n, b = INT4["rlwe"].polynomial_size, INT4["batch"]
+    n = INT4["rlwe"].polynomial_size
+    # the plain loop's recombine and accumulate: the int4 step at the bulk
+    # batch, exact and drop 2, and at a small request's 16 rows; TPU128's
+    # u32 step at its B=2048 tier
+    int4, int4_drop2 = (bsx.MxuPlan.from_config(_int4_config(*INT4["pbs"], d))
+                        for d in (0, 2))
+    for plan, b in [(int4, 2048), (int4_drop2, 2048), (int4, 16), (plan, 2048)]:
+        ks1, pn, lu = plan.glwe_size, plan.polynomial_size, plan.limbs_used
+        s = u32((b, ks1 * lu * pn))
+        acc = (u64 if plan.bits == 64 else u32)((ks1, b, pn))
+        out = torch.empty_like(acc)
+        cases.append((
+            "recombine_acc",
+            f"{'int4' if plan.bits == 64 else 'TPU128'} B={b} "
+            f"limb_drop={plan.limb_drop}",
+            lambda p=plan, s=s, acc=acc, out=out: bsx.recombine_acc(p, s, acc, out=out),
+            lambda p=plan, s=s, acc=acc: acc + bsx.recombine_limb_planes(p, s),
+            (s, acc),
+            {"key": f"B={b} ks1={ks1} N={pn} limbs={lu}"}))
+    b = INT4["batch"]
     for bl, lv in [INT4["pbs"], (10, 3), (16, 2), (16, 3)]:
         plan = bsx.MxuPlan.from_config(_int4_config(bl, lv))
         ks1 = plan.glwe_size
@@ -1161,7 +1186,7 @@ def phase_c_jit(bsk, fast, ksk, acc, cts, outs, total, card):
         got = replay_vs_eager(
             f"int4 jit {label}", "C", total, lambda: jit(*args),
             lambda: bsx.bootstrap_keyswitch_mxu(cfg, *args),
-            must=("rotdig64", "build_tables"))
+            must=("rotdig64", "build_tables", "recombine_acc"))
         if not np.array_equal(torus.to_numpy(got), outs[label][1].data):
             raise AssertionError(f"int4 jit {label}: differs from the "
                                  "high-level keyswitched rows")

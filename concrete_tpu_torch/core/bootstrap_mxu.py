@@ -17,7 +17,7 @@ One CMux step of the blind rotation, batch B, L = bits/8 - limb_drop limbs:
     build_tables (K1)   toeplitz RHS of the step's GGSW -> rhs [R*N, (k+1)*L*N] int8,
                         column-major
     int_mm              S = d8 @ rhs                    -> [B, (k+1)*L*N] int32
-    recombine           acc += sum_m S_m << 8(limb_drop + m)
+    recombine_acc       acc += sum_m S_m << 8(limb_drop + m), in place
 At large batch on the u32 torus the dot-first form folds the recombine of
 step j into the digit kernel of step j+1 (rotdig_recombine, K3). On request
 (`fused=True`, u32 torus) the table build, dot and recombine of a step run
@@ -530,6 +530,48 @@ def rotdig_recombine(plan: MxuPlan, s: torch.Tensor, acc: torch.Tensor,
 
 _cuda.counter(rotdig_recombine)
 
+
+def recombine_acc(plan: MxuPlan, s: torch.Tensor, acc: torch.Tensor, *,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """The limb recombine and accumulate of one CMux step, acc +
+    recombine_limb_planes(plan, s), wrapping, on either torus: s [B,
+    (k+1)*L*N] int32, the step's dot output; acc [k+1, B, N] int32 (u32
+    torus) or int64 (u64 torus). On CUDA one kernel
+    (csrc/mxu_kernels.cu) reads S and acc once and writes the sum once.
+    `out` may be `acc` itself: each output word is read and written by one
+    thread, so the update is then made in place.
+
+    >>> plan = MxuPlan(lwe_dimension=1, glwe_size=2, polynomial_size=4,
+    ...     base_log=7, level=1, n_sub=1, ks_base_log=2, ks_level=3, bits=64)
+    >>> s = torch.zeros((1, 2 * 8 * 4), dtype=torch.int32)
+    >>> s[0, 4] = -1                    # limb 1 of coefficient 0, kj = 0
+    >>> acc = torch.ones((2, 1, 4), dtype=torch.int64)
+    >>> recombine_acc(plan, s, acc)[0, 0].tolist()
+    [-255, 1, 1, 1]
+    """
+    ks1, b, n = acc.shape
+    dt = carrier(plan.bits)
+    _check(acc, "acc", dt, (plan.glwe_size, b, plan.polynomial_size))
+    _check(s, "s", torch.int32, (b, ks1 * plan.limbs_used * n))
+    if out is not None:
+        _check(out, "out", dt, acc.shape)
+    if _on_cpu(s, acc, out):
+        res = acc + recombine_limb_planes(plan, s)
+        return res if out is None else out.copy_(res)
+    if out is None:
+        out = torch.empty_like(acc)
+    if b:
+        _check_kernel_operands(n, s, acc, out)
+        _cuda.launch("ctt_recombine_acc" if plan.bits == 32
+                     else "ctt_recombine_acc64", s, acc, out, b, ks1, n,
+                     plan.limbs_used, plan.limb_drop)
+        _cuda.count_launch(recombine_acc, B=b, ks1=ks1, N=n,
+                           limbs=plan.limbs_used)
+    return out
+
+
+_cuda.counter(recombine_acc)
+
 FUSED_TILE = 64  # K8's column and depth tile (its row tile is 128)
 
 
@@ -592,7 +634,7 @@ def fused_external_product_acc(plan: MxuPlan, acc: torch.Tensor,
 
 _cuda.counter(fused_external_product_acc)
 
-KERNELS = (build_tables, rotdig, rotdig_recombine, rotdig64,
+KERNELS = (build_tables, rotdig, rotdig_recombine, rotdig64, recombine_acc,
            fused_external_product_acc)
 
 
@@ -710,9 +752,10 @@ def step_dot(d8, rhs, s, c0: int = 0, reduce=None):
 
 def _plain_scan(plan: MxuPlan, bsk_rings, acc, a_hats, block0: int = 0,
                 reduce=None):
-    """One CMux step per mask element: digits, table, dot, recombine. A
-    tensor-parallel rank passes its ring blocks (bsk_rings [n, R/tp, ...]
-    from block `block0` on) and `reduce` (step_dot)."""
+    """One CMux step per mask element: digits (K2 / K4), table (K1), dot
+    (int_mm), then recombine and accumulate in place (recombine_acc), on
+    both tori. A tensor-parallel rank passes its ring blocks (bsk_rings
+    [n, R/tp, ...] from block `block0` on) and `reduce` (step_dot)."""
     n = plan.polynomial_size
     d8, rhs, s = _step_buffers(plan, acc.shape[1], acc.device,
                                bsk_rings.shape[1])
@@ -721,8 +764,8 @@ def _plain_scan(plan: MxuPlan, bsk_rings, acc, a_hats, block0: int = 0,
     for i in range(a_hats.shape[0]):
         digits(plan, acc, a_hats[i], out=d8)
         build_tables(bsk_rings[i], n, plan.limb_drop, plan.n_words, out=rhs)
-        acc += recombine_limb_planes(
-            plan, step_dot(d8, rhs, s, block0 * n, reduce))
+        recombine_acc(plan, step_dot(d8, rhs, s, block0 * n, reduce), acc,
+                      out=acc)
     return acc
 
 

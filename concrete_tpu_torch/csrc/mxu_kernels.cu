@@ -1,7 +1,8 @@
 // Hand-written Hopper (sm_90a) kernels of the toeplitz ("mxu") blind
 // rotation: K1 build_tables, K2 rotdig, K3 rotdig_recombine (u32 torus) and
-// K4 rotdig64 (u64 torus). They replace the Pallas kernels of
-// concrete_tpu/core/bootstrap_mxu.py and compute the same bits; the plain
+// K4 rotdig64 (u64 torus), which replace the Pallas kernels of
+// concrete_tpu/core/bootstrap_mxu.py and compute the same bits, and
+// recombine_acc (both tori), which has no Pallas counterpart; the plain
 // PyTorch versions beside the wrappers
 // (concrete_tpu_torch/core/bootstrap_mxu.py) define what each one returns.
 //
@@ -18,6 +19,8 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -357,6 +360,71 @@ __global__ void rotdig_recombine_kernel(const int32_t* __restrict__ s,
              n_sub);
 }
 
+// recombine_acc. Replaces no TPU kernel: the JAX package leaves this sum to
+// XLA, which fuses recombine_limb_planes and the add after it into one
+// elementwise loop; in PyTorch the same composition is ~24 kernels a step
+// (a strided cast, a shift and an add per limb plane).
+// s [B, (k+1)*L*N] i32 (the step's dot output; columns in (kj, m, c) order,
+// as int_mm writes them), acc [k+1, B, N] in the carrier U (uint32_t on the
+// u32 torus, uint64_t on u64) -> out = acc + sum_m s_m << 8(limb_drop + m),
+// wrapping mod 2^(8 sizeof(U)): each limb is sign-extended to U, the sum is
+// in U's unsigned arithmetic. out may alias acc: each thread reads its four
+// coefficients of acc before it writes them.
+// Bound on the card: HBM bytes, S read once (4L bytes a coefficient), acc
+// read and written once: 201 MB at the int4 shape (B = 2048, k+1 = 2,
+// L = 8, N = 1024), 60 us at 3.35 TB/s.
+// Design: a thread owns 4 consecutive coefficients of one (kj, b) row, and
+// consecutive lanes take consecutive coefficients, so each of its L limb
+// loads and its acc load and store is a 16-byte vector a lane (two on u64),
+// coalesced into 512-byte runs a warp. L is a template argument, so all L
+// loads are issued before the first add. No shared memory, no barrier.
+// Blocks of 256 threads on the main path; fewer where the grid would give
+// the 132 SMs fewer than two blocks each (B = 16).
+constexpr int kRecombineThreads = 256;
+constexpr int kSms = 132;  // H100 SXM
+
+template <typename U, int L>
+__global__ void __launch_bounds__(kRecombineThreads)
+    recombine_acc_kernel(const int32_t* __restrict__ s, const U* acc, U* out,
+                         int batch, int ks1, int n, int limb_drop) {
+  using Signed = typename std::make_signed<U>::type;
+  constexpr int kVecs = static_cast<int>(sizeof(U)) / 4;  // uint4 a quad
+  const int row = blockIdx.x;  // kj * B + b, acc's row
+  const int kj = row / batch;
+  const int b = row - kj * batch;
+  const int c0 = 4 * (blockIdx.y * blockDim.x + threadIdx.x);
+  const int32_t* s_row =
+      s + (static_cast<size_t>(b) * ks1 + kj) * L * n + c0;
+  int4 v[L];
+#pragma unroll
+  for (int m = 0; m < L; ++m) {
+    v[m] = *reinterpret_cast<const int4*>(s_row + static_cast<size_t>(m) * n);
+  }
+  const size_t off = static_cast<size_t>(row) * n + c0;
+  uint4 raw[kVecs];
+#pragma unroll
+  for (int w = 0; w < kVecs; ++w) {
+    raw[w] = reinterpret_cast<const uint4*>(acc + off)[w];
+  }
+  U sum[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int m = 0; m < L; ++m) {
+    sum[0] += static_cast<U>(static_cast<Signed>(v[m].x)) << (8 * m);
+    sum[1] += static_cast<U>(static_cast<Signed>(v[m].y)) << (8 * m);
+    sum[2] += static_cast<U>(static_cast<Signed>(v[m].z)) << (8 * m);
+    sum[3] += static_cast<U>(static_cast<Signed>(v[m].w)) << (8 * m);
+  }
+  U x[4];
+  memcpy(x, raw, sizeof(x));
+#pragma unroll
+  for (int q = 0; q < 4; ++q) x[q] += sum[q] << (8 * limb_drop);
+  memcpy(raw, x, sizeof(x));
+#pragma unroll
+  for (int w = 0; w < kVecs; ++w) {
+    reinterpret_cast<uint4*>(out + off)[w] = raw[w];
+  }
+}
+
 // K1 build_tables. Replaces
 // concrete_tpu/core/bootstrap_mxu.py:_build_tables_pallas.
 // rings [R, (k+1)*n_words, 2N] u32 word planes (n_words = 1 for the u32
@@ -485,6 +553,43 @@ int launch_rotdig64(const void* acc, const void* a_hat, void* d8, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
+// recombine_acc's L, a template argument, chosen from limbs_used: L counts
+// down from sizeof(U), the carrier's limbs, so only valid shifts exist.
+template <typename U, int L>
+void launch_recombine_acc(int limbs_used, dim3 grid, int threads,
+                          cudaStream_t stream, const int32_t* s, const U* acc,
+                          U* out, int batch, int ks1, int n, int limb_drop) {
+  if constexpr (L >= 1) {
+    if (limbs_used == L) {
+      recombine_acc_kernel<U, L><<<grid, threads, 0, stream>>>(
+          s, acc, out, batch, ks1, n, limb_drop);
+    } else {
+      launch_recombine_acc<U, L - 1>(limbs_used, grid, threads, stream, s,
+                                     acc, out, batch, ks1, n, limb_drop);
+    }
+  }
+}
+
+template <typename U>
+int recombine_acc(const void* s, const void* acc, void* out, int batch,
+                  int ks1, int n, int limbs_used, int limb_drop,
+                  cudaStream_t stream) {
+  constexpr int kLimbs = static_cast<int>(sizeof(U));
+  if (batch < 1 || ks1 < 1 || n < 4 || (n & (n - 1)) || limbs_used < 1 ||
+      limb_drop < 0 || limbs_used + limb_drop > kLimbs) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int quads = n / 4;
+  const long long rows = static_cast<long long>(batch) * ks1;
+  int threads = quads < kRecombineThreads ? quads : kRecombineThreads;
+  while (threads > 32 && rows * (quads / threads) < 2 * kSms) threads /= 2;
+  launch_recombine_acc<U, kLimbs>(
+      limbs_used, dim3(static_cast<unsigned>(rows), quads / threads), threads,
+      stream, static_cast<const int32_t*>(s), static_cast<const U*>(acc),
+      static_cast<U*>(out), batch, ks1, n, limb_drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -557,6 +662,20 @@ int ctt_rotdig_recombine(const void* s, const void* acc, const void* a_hat,
       static_cast<int8_t*>(d8), batch, ks1, n, limbs_used, limb_drop,
       base_log, level, n_sub);
   return static_cast<int>(cudaGetLastError());
+}
+
+int ctt_recombine_acc(const void* s, const void* acc, void* out, int batch,
+                      int ks1, int n, int limbs_used, int limb_drop,
+                      void* stream) {
+  return recombine_acc<uint32_t>(s, acc, out, batch, ks1, n, limbs_used,
+                                 limb_drop, static_cast<cudaStream_t>(stream));
+}
+
+int ctt_recombine_acc64(const void* s, const void* acc, void* out, int batch,
+                        int ks1, int n, int limbs_used, int limb_drop,
+                        void* stream) {
+  return recombine_acc<uint64_t>(s, acc, out, batch, ks1, n, limbs_used,
+                                 limb_drop, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -324,7 +324,7 @@ def gate_pipeline_dp_tp_mxu(cfg: ServerConfig, mesh: DeviceMesh):
     its columns of the digit matrix (K2 on u32, K4 on u64: the bits of
     concrete_tpu's _digit_matrix, of which the JAX pipeline slices the same
     columns); the int32 partial dots add exactly (the plan's row bound
-    covers the full contraction), then recombine_limb_planes. The loop is
+    covers the full contraction), then recombine_acc. The loop is
     the single-device one (bootstrap_mxu.scan_for, with the rank's window
     and the sum as hooks): at batches where auto_defer holds (u32; B >=
     8192 at TPU128) the recombine is folded into the next step's K3. Both

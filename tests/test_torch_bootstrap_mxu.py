@@ -143,11 +143,71 @@ def test_wrappers_take_plain_versions_on_cpu():
     assert d8_new is d8 and torch.equal(d8, d8_want)
     assert bsx_t.launch_counts() == {"build_tables": 0, "rotdig": 0,
                                      "rotdig_recombine": 0, "rotdig64": 0,
+                                     "recombine_acc": 0,
                                      "fused_external_product_acc": 0}
     with pytest.raises(TypeError):
         bsx_t.rotdig(plan, acc, a_hat.to(torch.int64))
     with pytest.raises(ValueError):
         bsx_t.rotdig(plan, acc[:, :4], a_hat)
+
+
+def _recombine_operands(rng, bits, drop, b=9, ks1=3, n=64):
+    """A plan and (s, acc) for recombine_acc: S rows at INT32_MAX, at
+    INT32_MIN and alternating between them, the rest random; acc random
+    words of the carrier."""
+    plan = dataclasses.replace(_plan(ks1, n, 7, 2, 1, drop), bits=bits)
+    s = rng.integers(-(1 << 31), 1 << 31,
+                     size=(b, ks1 * plan.limbs_used * n)).astype(np.int32)
+    s[0, :] = 2 ** 31 - 1
+    s[1, :] = -(2 ** 31)
+    s[2, ::2], s[2, 1::2] = 2 ** 31 - 1, -(2 ** 31)
+    words = np.uint32 if bits == 32 else np.uint64
+    acc = rng.integers(0, np.iinfo(words).max, size=(ks1, b, n), dtype=words,
+                       endpoint=True)
+    acc[0, 0, :4] = [0, 1, np.iinfo(words).max, np.iinfo(words).max >> 1]
+    return plan, torch.from_numpy(s), _t(acc)
+
+
+@pytest.mark.parametrize("in_place", [False, True], ids=["out", "in_place"])
+@pytest.mark.parametrize("bits,drop", [(64, 0), (64, 2), (32, 0), (32, 1)])
+def test_recombine_acc_on_cpu_is_acc_plus_the_plain_recombine(bits, drop,
+                                                              in_place):
+    """On CPU tensors recombine_acc is acc + recombine_limb_planes, bit for
+    bit, wrapping mod 2^bits, into a new tensor or into acc itself, and
+    launches nothing."""
+    plan, s, acc = _recombine_operands(np.random.default_rng(bits + drop),
+                                       bits, drop)
+    want = acc + bsx_t.recombine_limb_planes(plan, s)
+    bsx_t.reset_launch_counts()
+    if in_place:
+        got = bsx_t.recombine_acc(plan, s, acc, out=acc)
+        assert got is acc
+    else:
+        before = acc.clone()
+        got = bsx_t.recombine_acc(plan, s, acc)
+        assert torch.equal(acc, before)
+    assert got.dtype == (torch.int32 if bits == 32 else torch.int64)
+    assert torch.equal(got, want)
+    assert bsx_t.recombine_acc.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["acc_dtype", "s_dtype", "s_shape",
+                                 "out_dtype", "acc_layout"])
+def test_recombine_acc_refuses_wrong_operands(bad):
+    plan, s, acc = _recombine_operands(np.random.default_rng(5), 64, 0)
+    out = None
+    if bad == "acc_dtype":
+        acc = acc.to(torch.int32)
+    elif bad == "s_dtype":
+        s = s.to(torch.int64)
+    elif bad == "s_shape":
+        s = s[:, :-1].contiguous()
+    elif bad == "out_dtype":
+        out = torch.empty(acc.shape, dtype=torch.int32)
+    else:
+        acc = acc.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises((TypeError, ValueError)):
+        bsx_t.recombine_acc(plan, s, acc, out=out)
 
 
 def test_modulus_switch_and_sample_extract_match_jax():

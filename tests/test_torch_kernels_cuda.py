@@ -153,6 +153,64 @@ def test_rotdig_recombine_kernel(dev, ks1, n, bl, l, n_sub, drop, b):
     assert torch.equal(acc, acc_want) and torch.equal(d8_got, d8_want)
 
 
+def _random_words(gen, shape, dtype, dev):
+    """Random int32 / int64 words made on the card (pairs of int32 words
+    for int64)."""
+    words = 2 if dtype == torch.int64 else 1
+    n = int(np.prod(shape)) * words
+    w = torch.randint(-(2 ** 31), 2 ** 31, (n,), generator=gen, device=dev,
+                      dtype=torch.int64).to(torch.int32)
+    return w.view(dtype).reshape(shape)
+
+
+# B at one row, the int4 small request (16) and one row past it, and the
+# int4 bulk batch; the fast mode's drop is 2 on u64, 1 on u32
+@pytest.mark.parametrize("in_place", [False, True], ids=["out", "in_place"])
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("ks1", [2, 3])
+@pytest.mark.parametrize("n", [256, 1024])
+@pytest.mark.parametrize("b", [1, 16, 17, 2048])
+@pytest.mark.parametrize("bits", [32, 64])
+def test_recombine_acc_kernel(dev, bits, b, n, ks1, fast, in_place):
+    drop = (2 if bits == 64 else 1) if fast else 0
+    plan = _plan(ks1, n, 7, 3, 1, drop, bits)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(bits * 100003 + b * 1009 + n * 7 + ks1 + drop)
+    s = _random_words(gen, (b, ks1 * plan.limbs_used * n), torch.int32, dev)
+    s[0] = 2 ** 31 - 1                                  # int32 extremes
+    s[-1, ::2] = -(2 ** 31)
+    acc = _random_words(gen, (ks1, b, n), torus.carrier(bits), dev)
+    want = acc + bsx.recombine_limb_planes(plan, s)
+    before = bsx.recombine_acc.launches
+    got = bsx.recombine_acc(plan, s, acc, out=acc if in_place else None)
+    assert bsx.recombine_acc.launches == before + 1
+    assert (got is acc) == in_place
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_u64_blind_rotation_launches_one_recombine_a_step(dev):
+    """The u64 plain loop at B = 16 (an int4 small request) recombines
+    every CMux step in one recombine_acc launch, and the result is the
+    CPU's."""
+    cfg = bs.ServerConfig(lwe_dimension=10, glwe_dimension=1,
+                          polynomial_size=256, pbs_base_log=7, pbs_level=3,
+                          ks_base_log=2, ks_level=8, bits=64)
+    rng = np.random.default_rng(16)
+    bsk = rng.integers(0, 1 << 64, size=(10, 3, 2, 2, 256), dtype=np.uint64)
+    rings = torus.from_numpy(bsx.bsk_to_mxu(bsk, cfg))
+    lut = torus.from_numpy(rng.integers(0, 1 << 64, size=(2, 256),
+                                        dtype=np.uint64))
+    lwe = torus.from_numpy(rng.integers(0, 1 << 64, size=(16, 11),
+                                        dtype=np.uint64))
+    want = bsx.blind_rotate_mxu(cfg, rings, lut, lwe)
+    bsx.reset_launch_counts()
+    got = bsx.blind_rotate_mxu(cfg, rings.to(dev), lut.to(dev), lwe.to(dev))
+    assert bsx.recombine_acc.launches == cfg.lwe_dimension
+    assert bsx.recombine_acc.shapes == {"B=16 ks1=2 N=256 limbs=8": 10}
+    assert torch.equal(got.cpu(), want)
+
+
 @pytest.mark.parametrize("m,k,n", [(5, 2524, 13), (16, 64, 64), (17, 40, 24),
                                    (17, 64, 64), (100, 6144, 2348),
                                    (64, 2560, 5120)])
