@@ -73,6 +73,45 @@ _GATE_LIN = {
 }
 
 
+def gate_linear(gate: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The ciphertexts a two-input gate bootstraps: its linear combination
+    of `a` and `b` plus its offset (_GATE_LIN), int32 bit patterns."""
+    lin_fn, offset = _GATE_LIN[gate]
+    lin = lin_fn(a, b)
+    lin[..., -1] += offset
+    return lin
+
+
+def pad_size(tiers, b: int) -> int:
+    """Padded batch for a `b`-row call: the smallest of `tiers` that fits,
+    else the next power of two (a tier of its own).
+
+    >>> pad_size({64, 2048}, 100), pad_size({64}, 100), pad_size((), 1)
+    (2048, 128, 1)
+    """
+    fitting = [t for t in tiers if t >= b]
+    if fitting:
+        return min(fitting)
+    return 1 << (b - 1).bit_length() if b > 1 else 1
+
+
+def flat_inputs(cts, device) -> tuple[list, torch.Size]:
+    """Ciphertext batches onto `device`, broadcast together and flattened to
+    [rows, n+1]; returns them and the broadcast leading shape."""
+    cts = torch.broadcast_tensors(*[as_torus(c, device) for c in cts])
+    return [c.reshape(-1, c.shape[-1]) for c in cts], cts[0].shape[:-1]
+
+
+def pad_rows(flats: list, padded: int) -> list:
+    """Each [rows, n+1] batch zero-padded to `padded` rows; the padding rows
+    bootstrap harmlessly and are cut off after the call."""
+    b = flats[0].shape[0]
+    if padded == b:
+        return flats
+    return [torch.cat([f, f.new_zeros((padded - b, f.shape[1]))])
+            for f in flats]
+
+
 _GATE_SPANS = {gate: f"gate.{gate}" for gate in _GATE_LIN}
 # rows of every gate call: "request" (asked for) and "padding" (added)
 GATE_ROWS = graphs.Counter("gate_rows")
@@ -250,29 +289,21 @@ class ServerKey:
 
     def _pad_size(self, b: int) -> int:
         """Padded batch for a `b`-row gate call: the smallest warmed tier that
-        fits, else the next power of two."""
-        fitting = [t for t in self._warmed_tiers if t >= b]
-        if fitting:
-            return min(fitting)
-        return 1 << (b - 1).bit_length() if b > 1 else 1
+        fits, else the next power of two (pad_size)."""
+        return pad_size(self._warmed_tiers, b)
 
     def _padded_call(self, fn, *cts):
         """Call `fn` on the ciphertext batches broadcast together, flattened
-        and zero-padded to `_pad_size` rows; the padding rows bootstrap
-        harmlessly and are cut off."""
+        and zero-padded to `_pad_size` rows (flat_inputs, pad_rows); the
+        padding rows bootstrap harmlessly and are cut off."""
         with graphs.span("gate.pad"):
-            cts = torch.broadcast_tensors(*[as_torus(c, self.device)
-                                            for c in cts])
-            lead = cts[0].shape[:-1]
-            flats = [c.reshape(-1, c.shape[-1]) for c in cts]
+            flats, lead = flat_inputs(cts, self.device)
             b = flats[0].shape[0]
             if b == 0:
-                return torch.zeros(lead + cts[0].shape[-1:],
+                return torch.zeros(lead + flats[0].shape[-1:],
                                    dtype=torch.int32, device=self.device)
             padded = self._pad_size(b)
-            if padded != b:
-                flats = [torch.cat([f, f.new_zeros((padded - b, f.shape[1]))])
-                         for f in flats]
+            flats = pad_rows(flats, padded)
         GATE_ROWS.add(b, "request")
         GATE_ROWS.add(padded - b, "padding")
         out = fn(*flats)
@@ -305,7 +336,7 @@ class ServerKey:
 
         timings = {}
         for bsz in batch_sizes:
-            tier = 1 << (int(bsz) - 1).bit_length() if bsz > 1 else 1
+            tier = pad_size((), int(bsz))
             self._warmed_tiers.add(tier)
             z = torch.zeros((tier, self.cfg.lwe_dimension + 1),
                             dtype=torch.int32, device=self.device)
@@ -407,12 +438,9 @@ def _gate_pipeline(cfg: bs.ServerConfig, backend: str, gate: str):
     builds it inside the jitted program, where here it would be a copy from
     the host inside the capture."""
     bks = _PBS_KEYSWITCH[backend]
-    lin_fn, offset = _GATE_LIN[gate]
 
     def run(bsk, ksk8, lut, a, b):
-        lin = lin_fn(a, b)
-        lin[..., -1] += offset
-        return bks(cfg, bsk, ksk8, lut, lin)
+        return bks(cfg, bsk, ksk8, lut, gate_linear(gate, a, b))
 
     return run
 

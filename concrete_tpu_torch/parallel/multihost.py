@@ -38,6 +38,7 @@ Example (the environment of rank 0 of host 1, four ranks a host):
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import os
 import socket
@@ -73,20 +74,28 @@ def worker_env(pid: int, n_processes: int, coordinator: str,
     }
 
 
-def initialize_from_env(backend: str | None = None) -> tuple[int, int]:
-    """init_process_group(init_method="env://") from the variables of
-    `worker_env`: NCCL where CUDA is present, gloo on a CPU-only machine,
-    or the backend named (gloo on CUDA tensors only that way: there is no
-    fallback when NCCL fails). Under NCCL the rank takes card LOCAL_RANK
-    (modulo the cards present). Returns (rank, world size)."""
-    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+def initialize_from_env(backend: str | None = None,
+                        timeout: float | None = None,
+                        env=None) -> tuple[int, int]:
+    """init_process_group at the rendezvous MASTER_ADDR:MASTER_PORT from the
+    variables of `worker_env` (`env`, or this process's environment): NCCL
+    where CUDA is present, gloo on a CPU-only machine, or the backend named
+    (gloo on CUDA tensors only that way: there is no fallback when NCCL
+    fails). Under NCCL the rank takes card LOCAL_RANK (modulo the cards
+    present). `timeout`: seconds a collective may wait (torch's default
+    where None). Returns (rank, world size)."""
+    env = os.environ if env is None else env
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     if backend == "nccl":
-        torch.cuda.set_device(int(os.environ["LOCAL_RANK"])
+        torch.cuda.set_device(int(env["LOCAL_RANK"])
                               % torch.cuda.device_count())
-    dist.init_process_group(backend, init_method="env://", rank=rank,
-                            world_size=world)
+    dist.init_process_group(
+        backend, init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+        rank=rank, world_size=world,
+        timeout=None if timeout is None else datetime.timedelta(
+            seconds=timeout))
     return rank, world
 
 
@@ -128,12 +137,17 @@ def placement(device=None, backend: str | None = None,
     return kind, backend
 
 
-def rank_device(device: str) -> torch.device:
-    """This rank's device: the CPU, or card LOCAL_RANK modulo the cards
-    present."""
+def rank_device(device: str, local_rank: int | None = None) -> torch.device:
+    """This rank's device: the CPU, or card `local_rank` (LOCAL_RANK where
+    None) modulo the cards present, made the current device here, on any
+    backend: torch's DeviceMesh takes the raw LOCAL_RANK as the card where
+    none is set yet, which does not exist where ranks share a card."""
     if device == "cuda":
-        return torch.device("cuda", int(os.environ["LOCAL_RANK"])
-                            % torch.cuda.device_count())
+        if local_rank is None:
+            local_rank = int(os.environ["LOCAL_RANK"])
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        return dev
     return torch.device(device)
 
 
