@@ -17,6 +17,8 @@ One CMux step of the blind rotation, batch B, L = bits/8 - limb_drop limbs:
     build_tables (K1)   toeplitz RHS of the step's GGSW -> rhs [R*N, (k+1)*L*N] int8,
                         column-major
     int_mm              S = d8 @ rhs                    -> [B, (k+1)*L*N] int32
+                        (d8 and S padded once a rotation to the rows
+                        torch._int_mm takes, gemm_rows)
     recombine_acc       acc += sum_m S_m << 8(limb_drop + m), in place
 At large batch on the u32 torus the dot-first form folds the recombine of
 step j into the digit kernel of step j+1 (rotdig_recombine, K3). On request
@@ -246,6 +248,56 @@ def _ceil8(x: int) -> int:
     return -(-x // 8) * 8
 
 
+def gemm_rows(m: int) -> int:
+    """The rows torch._int_mm is given for an m-row product on CUDA: m
+    rounded up to a multiple of 32 (it refuses M <= 16, and its cuBLASLt
+    call refused every M that is not a multiple of 32 once K <= 64; torch
+    2.11, H100).
+
+    >>> [gemm_rows(m) for m in (1, 16, 17, 32, 2048)]
+    [32, 32, 32, 32, 2048]
+    """
+    return -(-m // 32) * 32
+
+
+def int_mm_padding(m: int, k: int, n: int):
+    """((mp, kp, np_), padded) for a [m, k] @ b [k, n] on CUDA: the shape
+    torch._int_mm is given (M to gemm_rows, K and N to multiples of 8),
+    and which of "a", "b" and "out" differ from it. Each operand is padded
+    only in the dimensions it has that are short: a short M pads a alone,
+    a short K pads a and b, a short N pads b alone; "out" means the
+    product is larger than the result, which is then cut from it.
+
+    >>> int_mm_padding(16, 6144, 16384)
+    ((32, 6144, 16384), ('a', 'out'))
+    >>> int_mm_padding(2048, 6144, 16384)
+    ((2048, 6144, 16384), ())
+    """
+    mp, kp, np_ = gemm_rows(m), _ceil8(k), _ceil8(n)
+    short = (("a", (mp, kp) != (m, k)), ("b", (kp, np_) != (k, n)),
+             ("out", (mp, np_) != (m, n)))
+    return (mp, kp, np_), tuple(name for name, pad in short if pad)
+
+
+# bytes of the zero-padded copies int_mm makes for torch._int_mm's shape
+# limits, by operand: "a" and "b" the padded buffer (zeros included),
+# "out" the rows copied out into `out`; a replayed graph adds what its
+# capture counted
+PAD_BYTES = graphs.Counter("int_mm_pad_bytes")
+
+
+def _zero_padded(t: torch.Tensor, rows: int, cols: int, operand: str,
+                 column_major: bool) -> torch.Tensor:
+    """t [r, c] in the corner of zeros [rows, cols] of the given layout."""
+    if column_major:
+        buf = torch.zeros((cols, rows), dtype=t.dtype, device=t.device).t()
+    else:
+        buf = torch.zeros((rows, cols), dtype=t.dtype, device=t.device)
+    buf[:t.shape[0], :t.shape[1]] = t
+    PAD_BYTES.add(buf.numel() * buf.element_size(), operand)
+    return buf
+
+
 def int_mm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None):
     """Exact a [M, K] int8 @ b [K, N] int8 -> [M, N] int32 (torch._int_mm).
 
@@ -253,11 +305,11 @@ def int_mm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None):
     [N, K], as build_tables returns it): torch._int_mm takes either without
     a copy, and cuBLASLt's int8 product reads the column-major one fastest.
 
-    On CUDA, torch._int_mm refuses M <= 16 and K or N not a multiple of 8,
-    and its cuBLASLt call refused every M that is not a multiple of 32 once
-    K <= 64 (torch 2.11, H100); such shapes are zero-padded to M a multiple
-    of 32 and K, N multiples of 8 (the padding adds zeros and is cut off),
-    and only there, into a buffer of b's layout.
+    On CUDA an operand outside torch._int_mm's shape limits is zero-padded
+    (int_mm_padding), a row-major, b in its own layout; an operand inside
+    them is passed as it lies, so a short M copies the small a and never
+    the table b. The padding adds zeros, and the product is cut back to
+    [M, N] (copied into `out` when given). PAD_BYTES counts each copy.
 
     >>> a = torch.ones((2, 3), dtype=torch.int8)
     >>> b = torch.arange(12, dtype=torch.int8).reshape(4, 3).t()  # column-major
@@ -267,17 +319,17 @@ def int_mm(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor | None = None):
     m, k = a.shape
     n = b.shape[1]
     if a.device.type == "cuda":
-        mp, kp, np_ = -(-m // 32) * 32, _ceil8(k), _ceil8(n)
-        if (mp, kp, np_) != (m, k, n):
-            ap = torch.zeros((mp, kp), dtype=a.dtype, device=a.device)
-            ap[:m, :k] = a
-            if _column_major(b):
-                bp = torch.zeros((np_, kp), dtype=b.dtype, device=b.device).t()
-            else:
-                bp = torch.zeros((kp, np_), dtype=b.dtype, device=b.device)
-            bp[:k, :n] = b
-            res = torch._int_mm(ap, bp)[:m, :n]
-            return res if out is None else out.copy_(res)
+        (mp, kp, np_), padded = int_mm_padding(m, k, n)
+        if "a" in padded:
+            a = _zero_padded(a, mp, kp, "a", column_major=False)
+        if "b" in padded:
+            b = _zero_padded(b, kp, np_, "b", _column_major(b))
+        if "out" in padded:
+            res = torch._int_mm(a, b)[:m, :n]
+            if out is None:
+                return res
+            PAD_BYTES.add(res.numel() * res.element_size(), "out")
+            return out.copy_(res)
     if out is None:
         return torch._int_mm(a, b)
     return torch._int_mm(a, b, out=out)
@@ -722,31 +774,43 @@ def auto_defer(plan: MxuPlan, batch: int) -> bool:
 
 def _step_buffers(plan: MxuPlan, b: int, device, blocks: int | None = None):
     """The per-step d8 / RHS / S buffers, allocated once per rotation; the
-    RHS holds `blocks` ring blocks (a tensor-parallel rank's) or all R."""
+    RHS holds `blocks` ring blocks (a tensor-parallel rank's) or all R.
+    d8 and S have gemm_rows(b) rows, so that int_mm hands them and the
+    table to torch._int_mm as they lie at any batch: the digit kernel
+    writes d8[:b], the recombine reads S[:b], and the rows past b are
+    zeroed here, once. At a batch of a multiple of 32 they have b rows.
+    The CPU, where int_mm pads nothing, takes the same rows on purpose:
+    one layout on every device, so that the CPU runs the slicing the card
+    runs (at most 31 rows more, on the tiny shapes the CPU is given)."""
     n, r = plan.polynomial_size, plan.row_blocks
+    rows = gemm_rows(b)
     cols = plan.glwe_size * plan.limbs_used * n
-    d8 = torch.empty((b, r * n), dtype=torch.int8, device=device)
+    d8 = torch.empty((rows, r * n), dtype=torch.int8, device=device)
+    d8[b:].zero_()
     rhs = table_buffer((r if blocks is None else blocks) * n, cols,
                        device=device)
-    s = torch.zeros((b, cols), dtype=torch.int32, device=device)
+    s = torch.zeros((rows, cols), dtype=torch.int32, device=device)
     return d8, rhs, s
 
 
-def step_dot(d8, rhs, s, c0: int = 0, reduce=None):
-    """The int8 product of one CMux step into s: d8 [B, R*N] x rhs [R*N,
+def step_dot(d8, rhs, s, c0: int = 0, reduce=None, rows: int | None = None):
+    """The int8 product of one CMux step into s: d8 [M, R*N] x rhs [R*N,
     cols], or per group (the Nussbaumer frequencies) d8 [G, B, .] x rhs [G,
     ., cols]. Where rhs holds only a tensor-parallel rank's ring blocks,
     its rows meet d8's columns from c0 on, and `reduce` sums the partial S
     over the ranks (exact: the plan's row bound covers the whole
-    contraction). Returns S."""
-    rows = rhs.shape[-2]
-    if rows != d8.shape[-1]:
-        d8 = d8[..., c0:c0 + rows].contiguous()
+    contraction). Returns S, or its first `rows` rows (the batch of
+    padded 2-D buffers, _step_buffers), which alone are summed."""
+    depth = rhs.shape[-2]
+    if depth != d8.shape[-1]:
+        d8 = d8[..., c0:c0 + depth].contiguous()
     if d8.dim() == 2:
         int_mm(d8, rhs, out=s)
     else:
         for z in range(d8.shape[0]):
             int_mm(d8[z], rhs[z], out=s[z])
+    if rows is not None:
+        s = s[:rows]
     return s if reduce is None else reduce(s)
 
 
@@ -756,15 +820,15 @@ def _plain_scan(plan: MxuPlan, bsk_rings, acc, a_hats, block0: int = 0,
     (int_mm), then recombine and accumulate in place (recombine_acc), on
     both tori. A tensor-parallel rank passes its ring blocks (bsk_rings
     [n, R/tp, ...] from block `block0` on) and `reduce` (step_dot)."""
-    n = plan.polynomial_size
-    d8, rhs, s = _step_buffers(plan, acc.shape[1], acc.device,
-                               bsk_rings.shape[1])
+    n, b = plan.polynomial_size, acc.shape[1]
+    d8, rhs, s = _step_buffers(plan, b, acc.device, bsk_rings.shape[1])
+    d8_b = d8[:b]
     digits = rotdig if plan.bits == 32 else rotdig64
     acc = acc.clone()
     for i in range(a_hats.shape[0]):
-        digits(plan, acc, a_hats[i], out=d8)
+        digits(plan, acc, a_hats[i], out=d8_b)
         build_tables(bsk_rings[i], n, plan.limb_drop, plan.n_words, out=rhs)
-        recombine_acc(plan, step_dot(d8, rhs, s, block0 * n, reduce), acc,
+        recombine_acc(plan, step_dot(d8, rhs, s, block0 * n, reduce, b), acc,
                       out=acc)
     return acc
 
@@ -776,16 +840,16 @@ def _deferred_scan(plan: MxuPlan, bsk_rings, acc, a_hats, block0: int = 0,
     step j then consumes rings_j and a_hat_{j+1}, and the last step's dummy
     a_hat = 0 rotates by X^0 (its digits are discarded). u32 torus only.
     block0 / reduce as in _plain_scan."""
-    n = plan.polynomial_size
-    d8, rhs, s = _step_buffers(plan, acc.shape[1], acc.device,
-                               bsk_rings.shape[1])
+    n, b = plan.polynomial_size, acc.shape[1]
+    d8, rhs, s = _step_buffers(plan, b, acc.device, bsk_rings.shape[1])
+    d8_b = d8[:b]
     acc = acc.clone()
-    rotdig_recombine(plan, s, acc, a_hats[0], acc_out=acc, d8_out=d8)
+    rotdig_recombine(plan, s[:b], acc, a_hats[0], acc_out=acc, d8_out=d8_b)
     a_next = torch.cat([a_hats[1:], torch.zeros_like(a_hats[:1])], dim=0)
     for j in range(a_hats.shape[0]):
         build_tables(bsk_rings[j], n, plan.limb_drop, out=rhs)
-        rotdig_recombine(plan, step_dot(d8, rhs, s, block0 * n, reduce), acc,
-                         a_next[j], acc_out=acc, d8_out=d8)
+        rotdig_recombine(plan, step_dot(d8, rhs, s, block0 * n, reduce, b),
+                         acc, a_next[j], acc_out=acc, d8_out=d8_b)
     return acc
 
 

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import os
 import time
 import traceback
@@ -277,6 +278,12 @@ def _capture(fn, static, inputs, pool: GraphPool, name: str) -> CapturedGraph:
     stream = _capture_stream(device)
     before = snapshot()
     _capturing = True
+    # no cyclic collection inside the capture: a dead cycle's CUDA graph
+    # destroyed there invalidates it (torch.cuda.graph collects no more
+    # before capturing). This covers graphs held by cycles only: fn must
+    # not drop the last plain reference to a graph itself
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         # the outer context restores the caller's stream even when the
         # capture's end raises (the graph context then leaves its own open)
@@ -291,6 +298,8 @@ def _capture(fn, static, inputs, pool: GraphPool, name: str) -> CapturedGraph:
             f"{type(first).__name__}: {first}") from exc
     finally:
         _capturing = False
+        if collecting:
+            gc.enable()
         record = count_record(before, snapshot())
         add_counts(record, -1)
     t3 = time.perf_counter()

@@ -320,3 +320,72 @@ def test_int_mm_is_exact():
     out = torch.empty((5, 13), dtype=torch.int32)
     assert bsx_t.int_mm(a, b, out=out) is out
     np.testing.assert_array_equal(out.numpy(), want)
+
+
+@pytest.mark.parametrize("m,k,n,shape,padded", [
+    (16, 6144, 16384, (32, 6144, 16384), ("a", "out")),   # int4 CMux step
+    (16, 8192, 5048, (32, 8192, 5048), ("a", "out")),     # int4 keyswitch
+    (100, 6144, 2348, (128, 6144, 2352), ("a", "b", "out")),
+    (64, 2524, 512, (64, 2528, 512), ("a", "b")),
+    (2048, 6144, 16384, (2048, 6144, 16384), ())])
+def test_int_mm_padding_pads_only_the_short_operand(m, k, n, shape, padded):
+    """A short M pads a alone (the table b is passed as it lies), a short K
+    pads a and b, a short N pads b alone; an aligned product pads nothing."""
+    assert bsx_t.int_mm_padding(m, k, n) == (shape, padded)
+
+
+@pytest.mark.parametrize("b,rows", [(1, 32), (16, 32), (17, 32), (32, 32),
+                                    (2048, 2048)])
+def test_step_buffers_have_the_gemm_row_count(b, rows):
+    """d8 and S hold gemm_rows(b) rows, the rows past the batch zero; the
+    int4 shapes (K = 6144, 16384 columns) on the meta device, the zeros on
+    a tiny plan."""
+    cfg = bs_t.ServerConfig(lwe_dimension=630, glwe_dimension=1,
+                            polynomial_size=1024, pbs_base_log=7, pbs_level=3,
+                            ks_base_log=2, ks_level=8, bits=64)
+    plan = bsx_t.MxuPlan.from_config(cfg)
+    d8, rhs, s = bsx_t._step_buffers(plan, b, "meta")
+    assert tuple(d8.shape) == (rows, 6144) and d8.dtype == torch.int8
+    assert tuple(s.shape) == (rows, 16384) and s.dtype == torch.int32
+    assert tuple(rhs.shape) == (6144, 16384) and bsx_t._column_major(rhs)
+    assert bsx_t.int_mm_padding(rows, 6144, 16384) == ((rows, 6144, 16384), ())
+    d8, _, s = bsx_t._step_buffers(_plan(2, 16, 7, 2, 1), b, "cpu")
+    assert d8.shape[0] == s.shape[0] == rows
+    assert not d8[b:].any() and not s.any()
+
+
+def _u64_rotation_inputs(rng, cfg, b):
+    words = dict(dtype=np.uint64)
+    bsk = rng.integers(0, 1 << 64, size=(cfg.lwe_dimension, cfg.pbs_level,
+                                         cfg.glwe_size, cfg.glwe_size,
+                                         cfg.polynomial_size), **words)
+    lwe = rng.integers(0, 1 << 64, size=(b, cfg.lwe_dimension + 1), **words)
+    lwe[0, :] = 0xFFFF_FFFF_FFFF_FFFF               # degrees of exactly 2N
+    lut = rng.integers(0, 1 << 64, size=(cfg.glwe_size, cfg.polynomial_size),
+                       **words)
+    return bsk, lut, lwe
+
+
+@pytest.mark.parametrize("bits", [32, 64])
+def test_plain_scan_at_16_rows_matches_jax(bits):
+    """The plain loop at a batch of 16 (d8 and S padded to 32 rows, the
+    digits written to and S read from the first 16) gives the JAX
+    accumulator, on both tori."""
+    b = 16
+    if bits == 32:
+        cfg_j, cfg_t, rings, lut, lwe = _rotation_inputs(TINY_K2, 47, b)
+    else:
+        kw = dict(lwe_dimension=5, glwe_dimension=1, polynomial_size=64,
+                  pbs_base_log=7, pbs_level=3, ks_base_log=2, ks_level=8,
+                  bits=64)
+        cfg_j, cfg_t = bs_jax.ServerConfig(**kw), bs_t.ServerConfig(**kw)
+        bsk, lut, lwe = _u64_rotation_inputs(np.random.default_rng(47), cfg_t, b)
+        rings = bsx_jax.bsk_to_mxu(bsk, cfg_j)
+    want = np.asarray(bsx_jax.blind_rotate_mxu(
+        cfg_j, jnp.asarray(rings), jnp.asarray(lut), jnp.asarray(lwe)))
+    plan = bsx_t.MxuPlan.from_config(cfg_t)
+    acc0, a_hats = bs_t.rotation_start(_t(lut), _t(lwe), cfg_t.polynomial_size)
+    acc = bsx_t._plain_scan(plan, _t(rings), acc0, a_hats)
+    assert acc.shape[1] == b
+    np.testing.assert_array_equal(torus.to_numpy(acc.permute(1, 0, 2)), want)
+

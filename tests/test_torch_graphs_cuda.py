@@ -12,6 +12,7 @@ machine (where JAX, which tests/conftest.py imports, may be absent):
     python -m pytest --noconftest tests/test_torch_graphs_cuda.py"""
 
 import dataclasses
+import gc
 from pathlib import Path
 
 import numpy as np
@@ -203,6 +204,42 @@ def test_graph_is_dropped_with_its_key(dev):
     assert len(call.graphs) == 1
     del key
     assert not call.graphs
+
+
+def test_a_dead_graph_in_a_cycle_does_not_break_a_capture(dev):
+    """Inside a capture, the last reference to a captured graph goes into
+    a dead reference cycle, and 20,000 lists are made against a young
+    generation's threshold of 700 (pinned here), enough to start the
+    cyclic collector many times over: the capture runs no collection (one
+    there would destroy the dead graph, which invalidates the capture),
+    and the graph goes at the next collection after it."""
+    x = torch.arange(8, device=dev)
+    held = graphs.GraphedCall(lambda x: x * 2)
+    assert torch.equal(held(x), x * 2)
+    state = {"calls": 0, "held": held}
+    del held
+
+    def drops_a_graph(x):
+        state["calls"] += 1
+        if state["calls"] == 2:          # the capture (1: its warm run)
+            cycle = {"call": state.pop("held")}
+            cycle["self"] = cycle
+            del cycle
+            junk = [[] for _ in range(20_000)]
+            assert junk
+        return x + 1
+
+    assert gc.isenabled()
+    threshold = gc.get_threshold()
+    gc.set_threshold(700, 10, 10)
+    try:
+        call = graphs.GraphedCall(drops_a_graph)
+        assert torch.equal(call(x), x + 1) and len(call.graphs) == 1
+    finally:
+        gc.set_threshold(*threshold)
+    assert gc.isenabled()
+    gc.collect()
+    assert torch.equal(call(x + 1), x + 2)
 
 
 def test_capture_of_a_host_copy_raises(dev):

@@ -19,6 +19,7 @@ from concrete_tpu_torch.core import bootstrap as bs
 from concrete_tpu_torch.core import bootstrap_mxu as bsx
 from concrete_tpu_torch.core import bootstrap_ntt as bsntt
 from concrete_tpu_torch.core import bootstrap_nuss as bsn
+from concrete_tpu_torch.core import lwe as lwe_ops
 from concrete_tpu_torch.core.ggsw import bsk_to_ntt
 from concrete_tpu_torch.dispersion import StandardDev
 from concrete_tpu_torch.math import polynomial
@@ -677,3 +678,76 @@ def test_gate_pipeline_dp_tp_mxu_on_a_world_of_one_nccl(dev, tmp_path):
         dist.destroy_process_group()
     assert torch.equal(got, bsx.bootstrap_keyswitch_mxu(sks.cfg, *args))
     np.testing.assert_array_equal(cks.decrypt(got), a & b)
+
+
+def _pad_bytes():
+    return dict(bsx.PAD_BYTES.by_key)
+
+
+def _pad_delta(before):
+    return {k: n - before.get(k, 0) for k, n in _pad_bytes().items()
+            if n != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("m,k,n,layout", [(16, 6144, 16384, "column"),
+                                          (16, 8192, 5048, "row")])
+def test_int_mm_pads_the_small_operand_not_the_table(dev, m, k, n, layout):
+    """At 16 rows (the int4 CMux step's table, column-major, and the int4
+    keyswitch key, row-major) int_mm copies a alone into 32 rows: equal to
+    torch._int_mm of the padded operands, and no "b" bytes counted."""
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-128, 128, size=(m, k),
+                                      dtype=np.int8)).to(dev)
+    b = torch.from_numpy(rng.integers(-128, 128, size=(n, k) if layout ==
+                                      "column" else (k, n), dtype=np.int8))
+    b = (b.t() if layout == "column" else b).to(dev)
+    assert bsx._column_major(b) == (layout == "column")
+    ap = torch.zeros((32, k), dtype=torch.int8, device=dev)
+    ap[:m] = a
+    want = torch._int_mm(ap, b)[:m]
+    before = _pad_bytes()
+    got = bsx.int_mm(a, b)
+    assert _pad_delta(before) == {"a": 32 * k}
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    before = _pad_bytes()
+    assert bsx.int_mm(a, b, out=out) is out
+    assert _pad_delta(before) == {"a": 32 * k, "out": m * n * 4}
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(out, want)
+
+
+def test_int4_widths_at_16_rows_match_cpu_and_copy_no_table(dev):
+    """The int4 widths (u64, N = 1024, k = 1, PBS bl 7 l 3, KS bl 2 l 8;
+    the rotation cut to 4 steps) at a batch of 16: the blind rotation and
+    a replay of jit_bootstrap_keyswitch_mxu on the card equal the CPU; the
+    rotation pads nothing, and the replay's graph no table ("b") and
+    nothing but the keyswitch's 16 x 8192 digit block ("a")."""
+    cfg = bs.ServerConfig(lwe_dimension=4, glwe_dimension=1,
+                          polynomial_size=1024, pbs_base_log=7, pbs_level=3,
+                          ks_base_log=2, ks_level=8, bits=64)
+    rng = np.random.default_rng(20)
+    word = dict(dtype=np.uint64, endpoint=True)
+    top = np.iinfo(np.uint64).max
+    bsk = rng.integers(0, top, size=(4, 3, 2, 2, 1024), **word)
+    ksk = rng.integers(0, top, size=(1024, 8, 631), **word)
+    rings = torus.from_numpy(bsx.bsk_to_mxu(bsk, cfg))
+    ksk8 = torch.from_numpy(lwe_ops.ksk_to_limbs(ksk))
+    keys = (rings.to(dev), ksk8.to(dev))
+    call = bsx.jit_bootstrap_keyswitch_mxu(cfg)
+    for i in range(2):
+        lut = torus.from_numpy(rng.integers(0, top, size=(2, 1024), **word))
+        lwe = torus.from_numpy(rng.integers(0, top, size=(16, 5), **word))
+        before = _pad_bytes()
+        got = bsx.blind_rotate_mxu(cfg, keys[0], lut.to(dev), lwe.to(dev))
+        torch.cuda.synchronize()
+        assert _pad_delta(before) == {}
+        assert torch.equal(got.cpu(), bsx.blind_rotate_mxu(cfg, rings, lut,
+                                                           lwe))
+        before = _pad_bytes()
+        got = call(*keys, lut.to(dev), lwe.to(dev))
+        torch.cuda.synchronize()
+        if i:          # the first call also runs fn once before its capture
+            assert _pad_delta(before) == {"a": 32 * 8192}
+        assert len(call.graphs) == 1
+        assert torch.equal(got.cpu(), call(rings, ksk8, lut, lwe))
+

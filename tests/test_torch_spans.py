@@ -22,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from concrete_tpu_torch import boolean
 from concrete_tpu_torch.boolean import server_key
+from concrete_tpu_torch.core import bootstrap_mxu
 from concrete_tpu_torch.dispersion import StandardDev
 from concrete_tpu_torch.highlevel import (
     LWEBSK,
@@ -192,7 +193,7 @@ def test_no_plain_counter_key_reads_as_a_batch_shape(gate_keys,
         v.bootstrap_all_with_function(bsk, lambda x: x, enc)
     plain = [c for c in _cuda.COUNTED if isinstance(c, graphs.Counter)]
     assert {graphs.SPAN_NS, graphs.SPAN_CALLS, graphs.CAPTURE_NS,
-            server_key.GATE_ROWS} <= set(plain)
+            server_key.GATE_ROWS, bootstrap_mxu.PAD_BYTES} <= set(plain)
     keys = [k for c in plain for k in c.by_key]
     keys += [g.name for g in (*sks._graphs.values(), *bsk._graphs.values())]
     assert keys and not [k for k in keys if SHAPE_KEY.search(k)]
