@@ -192,6 +192,7 @@ from concrete_tpu_torch import boolean, design, diagnose, fixtures, highlevel as
 from concrete_tpu_torch import examples, native, torus
 from concrete_tpu_torch.boolean import circuits
 from concrete_tpu_torch.boolean import server_key as sk_mod
+from concrete_tpu_torch.core import backends
 from concrete_tpu_torch.core import bootstrap as bs
 from concrete_tpu_torch.core import bootstrap_mxu as bsx
 from concrete_tpu_torch.core import bootstrap_ntt as bsntt
@@ -436,7 +437,7 @@ class EagerGates:
         s, backend = self.sks, self.sks.resolved_backend()
         fn = (sk_mod._mux_pipeline(s.cfg, backend) if name == "mux"
               else sk_mod._gate_pipeline(s.cfg, backend, name))
-        keys = (s._bootstrap_keys(), s.ksk8, s._lut())
+        keys = s.gate_keys()
         return s._padded_call(lambda *x: fn(*keys, *x), *cts)
 
     def and_(self, a, b):
@@ -453,9 +454,9 @@ class EagerGates:
 
 
 def twin(sks, backend):
-    """A twin of a server key on another backend, with graphs of its own
-    (dataclasses.replace alone would share the parent's graph cache)."""
-    return dataclasses.replace(sks, backend=backend, **sk_mod._fresh_graphs())
+    """A twin of a server key on another backend, with forms and graphs of
+    its own."""
+    return dataclasses.replace(sks, backend=backend)
 
 
 def shapes_now() -> dict:
@@ -531,7 +532,8 @@ def warm_graphs(phase, label, sks, tiers, gates=("and",), mux=False, card=""):
         warmup_s={f"{g} B={t}": v for (g, t), v in warm.items()},
         warmup_s_total=sum(warm.values()),
         pool_bytes=torch.cuda.memory_reserved() - before,
-        graphs=[dict(pipeline=c.name, **g) for c in sks._graphs.values()
+        graphs=[dict(pipeline=c.name, **g)
+                for c in sks.evaluation.graphs.values()
                 for g in c.captures()], card=card)
     return warm
 
@@ -1148,8 +1150,9 @@ def highlevel_replays(phase, label, bsk, acc, cts, total, card, many, must,
     launched); the key's graphs' capture seconds by part; the medians of
     `reps` replays and eager calls in turn and one profiled call of each."""
     backend = bsk.resolved_backend()
-    key = bsk._bootstrap_key()
-    pbs, pbs_many = hl.keys._PBS[backend], hl.keys._PBS_MANY[backend]
+    key = bsk.evaluation.form()
+    entry = backends.BACKENDS[backend]
+    pbs, pbs_many = entry.bootstrap, entry.bootstrap_many_lut
     eager = lambda: pbs(bsk.cfg, key, acc, cts)   # noqa: E731
     replay_vs_eager(label, phase, total, lambda: bsk.run_bootstrap(acc, cts),
                     eager, must=must)
@@ -1161,7 +1164,8 @@ def highlevel_replays(phase, label, bsk, acc, cts, total, card, many, must,
                 lambda: bsk.run_bootstrap(acc, cts), eager, card, reps,
                 replay_equal_to_eager=True,
                 graphs=[dict(pipeline=c.name, **g)
-                        for c in bsk._graphs.values() for g in c.captures()])
+                        for c in bsk.evaluation.graphs.values()
+                        for g in c.captures()])
     profile_both(label, lambda: bsk.run_bootstrap(acc, cts), eager, card,
                  gemm_ops=gemm_ops, phase=phase)
 
@@ -1347,7 +1351,7 @@ def nuss_engine(dev, card, total):
             med = log_in_turn(
                 "D", f"{label} PBS + keyswitch (jit)", b, lambda: jit(*args),
                 lambda cfg=cfg: bsn.bootstrap_keyswitch_nuss(cfg, *args), card,
-                auto_backend=bsn.resolve_backend(cfg, "auto"), backend="nuss",
+                auto_backend=backends.resolve_backend(cfg, "auto"), backend="nuss",
                 L=plan.l, M=plan.m, limbs=plan.limbs_used, key_prep_s=prep_s,
                 first_call_s=first_s, replay_equal_to_eager=True)
             profile_both(f"{label} PBS + keyswitch B={b}", lambda: jit(*args),
@@ -1485,7 +1489,7 @@ def ntt_gate_server(name, params, dev, card, total):
     lin[:, -1] -= 1 << (32 - PLAINTEXT_LOG_SCALING_FACTOR)
     if name == "TPU128":
         jit = bsntt.jit_bootstrap_keyswitch(ntt.cfg)
-        args = (ntt.bsk_ntt, ntt.ksk8, ntt._lut(), lin)
+        args = (*ntt.gate_keys(), lin)
         jit(*args)
         log_jit("E", f"{name} jit_bootstrap_keyswitch", jit, card)
         got = replay_vs_eager(f"{name} jit_bootstrap_keyswitch", "E", total,
@@ -1503,8 +1507,8 @@ def ntt_gate_server(name, params, dev, card, total):
                      lambda: eager.and_(ca, cb), card)
 
     def gate_mxu(fused):
-        return bsx.bootstrap_keyswitch_mxu(sks.cfg, sks.bsk_mxu, sks.ksk8,
-                                           sks._lut(), lin, fused=fused)
+        return bsx.bootstrap_keyswitch_mxu(sks.cfg, *sks.gate_keys(), lin,
+                                           fused=fused)
 
     reset_launch_counts()
     fused_out = gate_mxu(True)
@@ -1584,7 +1588,8 @@ def ntt_int4(dev, card, total):
     log(phase="E", cell=f"int4 ntt B={b}", rows=b, wrong_rows=0,
         multi_lut_functions=len(MULTI_FNS), equal_to_mxu=True,
         ms_per_call=pbs_s * 1e3, pbs_per_s=b / pbs_s, replayed=True,
-        graphs=[dict(pipeline=c.name, **g) for c in bsk._graphs.values()
+        graphs=[dict(pipeline=c.name, **g)
+                for c in bsk.evaluation.graphs.values()
                 for g in c.captures()], card=card)
 
 
@@ -2122,7 +2127,7 @@ def phase_h1(dev, card):
                                                    PHASE_H["seed"])
             lin = torus.from_numpy(ca, dev) + torus.from_numpy(cb, dev)
             lin[:, -1] -= 1 << (32 - PLAINTEXT_LOG_SCALING_FACTOR)   # AND
-            lut = sks._lut()
+            lut = sks.gate_keys()[2]
             if name == "TFHE_LIB":     # phase D's backend="nuss" twin
                 nuss = (sks.bsk_nuss, sks.ksk8, lut, lin)
                 cells = [("gate_pipeline_dp_tp_nuss",

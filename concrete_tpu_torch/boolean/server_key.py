@@ -9,7 +9,7 @@ Every bootstrapped gate is a linear combination, a PBS with the constant
 With `backend="auto"` the PBS runs through the exact-NTT ("ntt") backend
 wherever its CRT primes take the configuration, else the toeplitz ("mxu")
 backend for N <= 4096 and the Nussbaumer ("nuss") backend above
-(bootstrap_nuss.resolve_backend); or through the one named by `backend`.
+(core/backends.resolve_backend); or through the one named by `backend`.
 The three are bit-identical. Gates take np.uint32 arrays or int32
 tensors [..., n+1] and return int32 tensors on the key's device. On the
 card each gate call replays one captured CUDA graph per (gate, padded
@@ -45,15 +45,13 @@ import numpy as np
 import torch
 
 from ..core import bootstrap as bs
-from ..core import bootstrap_mxu as bsx
-from ..core import bootstrap_ntt as bsntt
-from ..core import bootstrap_nuss as bsn
 from ..core import lwe as lwe_ops
-from ..core.ggsw import StandardBootstrapKey, bsk_to_ntt
+from ..core.backends import BACKENDS, EvaluationForms, EvaluationKey
+from ..core.ggsw import StandardBootstrapKey
 from ..csprng import EncryptionRandomGenerator
 from ..ops import _cuda, graphs
 from ..params import BooleanParameters
-from ..torus import as_torus, from_numpy, i32
+from ..torus import as_torus, i32
 from .client_key import ClientKey, PLAINTEXT_LOG_SCALING_FACTOR, PLAINTEXT_TRUE
 
 # gate offsets as int32 bit patterns (the negative ones are u32 > 2^31)
@@ -123,39 +121,33 @@ _SAVED_CONFIG = ("lwe_dimension", "glwe_dimension", "polynomial_size",
 
 
 @dataclasses.dataclass
-class ServerKey:
+class ServerKey(EvaluationForms):
     """Coefficient-domain bootstrap key + keyswitch key + configuration.
 
     The evaluation forms (toeplitz or Nussbaumer rings or NTT spectra of the
     BSK, int8 limb planes of the KSK) are derived from the stored arrays at
     first use, on `device`. `backend` is "mxu", "nuss", "ntt" or "auto"
-    (resolved_backend)."""
+    (resolved_backend). `evaluation` (core/backends.py) holds the BSK's
+    forms and the gate pipelines' graphs, one graph per tier each."""
 
     ksk: np.ndarray               # [k*N, l_ks, n+1] np.uint32
     cfg: bs.ServerConfig
     bsk_standard: np.ndarray      # [n, l, k+1, k+1, N] np.uint32
     device: torch.device | str | None = None   # None: the GPU (required)
     backend: str = "auto"
-    _bsk_mxu: torch.Tensor | None = dataclasses.field(default=None, repr=False)
-    _bsk_nuss: torch.Tensor | None = dataclasses.field(default=None, repr=False)
-    _bsk_ntt: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     _ksk8: torch.Tensor | None = dataclasses.field(default=None, repr=False)
     _lut_t: torch.Tensor | None = dataclasses.field(
         default=None, repr=False, compare=False)
     # batch tiers run by warmup(); _pad_size pads smaller requests up to them
     _warmed_tiers: set = dataclasses.field(
         default_factory=set, repr=False, compare=False)
-    # the gate pipelines' graphs ({(pipeline, backend, cfg): GraphedCall},
-    # one graph per tier each) and their memory pool; new wherever the keys
-    # change (to, with_fast_mode, load)
-    _graphs: dict = dataclasses.field(
-        default_factory=dict, repr=False, compare=False)
-    _graph_pool: graphs.GraphPool = dataclasses.field(
-        default_factory=graphs.GraphPool, repr=False, compare=False)
+    evaluation: EvaluationKey = dataclasses.field(
+        init=False, repr=False, compare=False)
 
     def __post_init__(self):
         c = self.cfg
         self.device = _cuda.resolve_device(self.device)
+        self._warmed_tiers = set(self._warmed_tiers)
         bsk_shape = (c.lwe_dimension, c.pbs_level, c.glwe_size, c.glwe_size,
                      c.polynomial_size)
         ksk_shape = (c.big_lwe_dimension, c.ks_level, c.lwe_dimension + 1)
@@ -163,42 +155,8 @@ class ServerKey:
             raise ValueError(
                 f"key shapes {self.bsk_standard.shape} / {self.ksk.shape} do "
                 f"not match the configuration ({bsk_shape} / {ksk_shape})")
-
-    def resolved_backend(self) -> str:
-        """The backend the gates run: `backend` when it is "mxu", "nuss" or
-        "ntt" (checked against the configuration), else "ntt" wherever the
-        ntt backend takes the configuration, as concrete_tpu picks off the
-        TPU (on an H100 its K9 step is the fastest gate path), and
-        otherwise "mxu" (N <= 4096) or "nuss" (N = 8192, 16384)."""
-        return bsn.resolve_backend(self.cfg, self.backend)
-
-    @property
-    def bsk_mxu(self) -> torch.Tensor:
-        """Toeplitz rotation rings [n, R, k+1, 2N] int32 on the device."""
-        if self._bsk_mxu is None:
-            bsx.MxuPlan.from_config(self.cfg)
-            self._bsk_mxu = from_numpy(
-                bsx.bsk_to_mxu(self.bsk_standard, self.cfg), self.device)
-        return self._bsk_mxu
-
-    @property
-    def bsk_nuss(self) -> torch.Tensor:
-        """Nussbaumer-domain rings [n, 2L*R', 2(k+1), 2M] int32, converted
-        on the device (bsk_to_nuss)."""
-        if self._bsk_nuss is None:
-            self._bsk_nuss = bsn.bsk_to_nuss(self.bsk_standard, self.cfg,
-                                             device=self.device)
-        return self._bsk_nuss
-
-    @property
-    def bsk_ntt(self) -> torch.Tensor:
-        """NTT spectra [n, P, l, k+1, k+1, N] int32, converted on the device
-        (ggsw.bsk_to_ntt)."""
-        if self._bsk_ntt is None:
-            self._bsk_ntt = bsk_to_ntt(self.bsk_standard,
-                                       self.cfg.primes, 32,
-                                       device=self.device)
-        return self._bsk_ntt
+        self.evaluation = EvaluationKey(self.cfg, self.bsk_standard,
+                                        self.device, self.backend)
 
     @property
     def ksk8(self) -> torch.Tensor:
@@ -265,11 +223,11 @@ class ServerKey:
         """The same key on another device (evaluation forms moved, not
         rebuilt; warmed tiers and graphs are per device and start empty)."""
         move = (lambda t: None if t is None else t.to(device))
-        return dataclasses.replace(
-            self, device=torch.device(device), _bsk_mxu=move(self._bsk_mxu),
-            _bsk_nuss=move(self._bsk_nuss), _bsk_ntt=move(self._bsk_ntt),
-            _ksk8=move(self._ksk8), _lut_t=move(self._lut_t),
-            **_fresh_graphs())
+        key = dataclasses.replace(
+            self, device=torch.device(device), _ksk8=move(self._ksk8),
+            _lut_t=move(self._lut_t), _warmed_tiers=set())
+        key.evaluation = self.evaluation.to(key.device)
+        return key
 
     def with_fast_mode(self, *, limb_drop: int = 0,
                        levels: int | None = 2) -> "ServerKey":
@@ -283,7 +241,7 @@ class ServerKey:
         cfg = self.cfg.with_fast_mode(limb_drop=limb_drop, levels=levels)
         return dataclasses.replace(
             self, cfg=cfg, bsk_standard=self.bsk_standard[:, :cfg.pbs_level],
-            _bsk_mxu=None, _bsk_nuss=None, _bsk_ntt=None, **_fresh_graphs())
+            _warmed_tiers=set())
 
     # -- batching ------------------------------------------------------------
 
@@ -357,27 +315,18 @@ class ServerKey:
                                                   self.device)
         return self._lut_t
 
-    def _bootstrap_keys(self) -> torch.Tensor:
-        backend = self.resolved_backend()
-        if backend == "nuss":
-            return self.bsk_nuss
-        if backend == "ntt":
-            return self.bsk_ntt
-        return self.bsk_mxu
-
-    def _graphed(self, name: str, pipeline) -> graphs.GraphedCall:
-        """The key's GraphedCall of `pipeline`, fn(bsk, ksk8, lut, *cts)."""
-        slot = (name, self.resolved_backend(), self.cfg)
-        if slot not in self._graphs:
-            self._graphs[slot] = graphs.GraphedCall(
-                pipeline, 3, name=f"{name} ({slot[1]})", pool=self._graph_pool)
-        return self._graphs[slot]
+    def gate_keys(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """What every gate pipeline takes before its ciphertexts, on the
+        device: the BSK in the running backend's form, the keyswitch key's
+        limb planes (ksk8) and the test polynomial."""
+        return self.evaluation.form(), self.ksk8, self._lut()
 
     def _run_gate(self, gate: str, ct_left, ct_right) -> torch.Tensor:
         with graphs.span(_GATE_SPANS[gate]):
-            call = self._graphed(
-                gate, _gate_pipeline(self.cfg, self.resolved_backend(), gate))
-            keys = (self._bootstrap_keys(), self.ksk8, self._lut())
+            ev = self.evaluation
+            call = ev.graphed(gate, lambda: _gate_pipeline(
+                self.cfg, ev.backend, gate), 3, gate)
+            keys = self.gate_keys()
             return self._padded_call(lambda a, b: call(*keys, a, b),
                                      ct_left, ct_right)
 
@@ -407,25 +356,12 @@ class ServerKey:
         """(c ? t : e) via two PBS sharing one blind rotation batch, then one
         keyswitch (server_key/mod.rs:197-279)."""
         with graphs.span("gate.mux"):
-            call = self._graphed("mux", _mux_pipeline(
-                self.cfg, self.resolved_backend()))
-            keys = (self._bootstrap_keys(), self.ksk8, self._lut())
+            ev = self.evaluation
+            call = ev.graphed("mux", lambda: _mux_pipeline(
+                self.cfg, ev.backend), 3, "mux")
+            keys = self.gate_keys()
             return self._padded_call(lambda c, t, e: call(*keys, c, t, e),
                                      ct_condition, ct_then, ct_else)
-
-
-def _fresh_graphs() -> dict:
-    """The fields of a key copy whose keys change: no warmed tier, no graph
-    (a copy sharing its parent's would replay the parent's keys)."""
-    return {"_warmed_tiers": set(), "_graphs": {},
-            "_graph_pool": graphs.GraphPool()}
-
-
-_PBS_KEYSWITCH = {"mxu": bsx.bootstrap_keyswitch_mxu,
-                  "nuss": bsn.bootstrap_keyswitch_nuss,
-                  "ntt": bsntt.bootstrap_keyswitch}
-_PBS = {"mxu": bsx.bootstrap_mxu, "nuss": bsn.bootstrap_nuss,
-        "ntt": bsntt.bootstrap}
 
 
 @functools.lru_cache(maxsize=None)
@@ -434,10 +370,10 @@ def _gate_pipeline(cfg: bs.ServerConfig, backend: str, gate: str):
     fn(bsk, ksk8, lut, a, b) -> the linear combination and offset, the PBS
     with the constant 1/8 test polynomial on `backend`, the keyswitch.
     ServerKey captures it as one CUDA graph per (gate, padded tier). The
-    LUT is an argument, made once per key (ServerKey._lut): concrete_tpu
+    LUT is an argument, made once per key (ServerKey.gate_keys): concrete_tpu
     builds it inside the jitted program, where here it would be a copy from
     the host inside the capture."""
-    bks = _PBS_KEYSWITCH[backend]
+    bks = BACKENDS[backend].bootstrap_keyswitch
 
     def run(bsk, ksk8, lut, a, b):
         return bks(cfg, bsk, ksk8, lut, gate_linear(gate, a, b))
@@ -450,7 +386,7 @@ def _mux_pipeline(cfg: bs.ServerConfig, backend: str):
     """MUX in one pipeline, concrete_tpu's of the same name: fn(bsk, ksk8,
     lut, c, t, e) -> both linear combinations, the two PBS stacked on one
     batch axis (one blind rotation), their sum plus 1/8, the keyswitch."""
-    pbs_fn = _PBS[backend]
+    pbs_fn = BACKENDS[backend].bootstrap
 
     def run(bsk, ksk8, lut, c, t, e):
         lin1 = c + t

@@ -196,64 +196,6 @@ class NussPlan:
         return 1 << (bsx.MxuPlan.SUB_CHUNK_BITS * (self.n_sub - 1 - sub))
 
 
-def _takes_ntt(cfg: ServerConfig) -> bool:
-    try:
-        cfg.primes
-    except (NotImplementedError, ValueError):
-        return False
-    return True
-
-
-def resolve_backend(cfg: ServerConfig, backend: str) -> str:
-    """The bootstrap backend for `cfg`: "mxu", "nuss" or "ntt" when named
-    (and the backend takes the configuration), else for "auto", per torus:
-
-    - u32: "ntt" wherever `cfg.primes` takes the configuration, which is
-      concrete_tpu's rule off the TPU; else mxu (N <= 4096), then nuss. On
-      an H100 80GB HBM3 (700 W) the ntt AND ran 22,015 / 19,526 / 10,904
-      gates/s at TPU128 / DEFAULT / TFHE_LIB, B=2048, against mxu's 6,034 /
-      2,560 / 1,801, and K9's N=8192 step took 458 us at B=256 against
-      ~4.5 ms for a nuss step (chip_smoke.py).
-    - u64: mxu up to N = 4096, nuss above, ntt where neither plan takes
-      the configuration. This deviates on purpose from concrete_tpu's
-      off-TPU rule: the u64 ntt step has no kernel (three primes, a torch
-      composition) and ran 24.7-41.9 int4 PBS/s at B=256 against mxu's 825
-      at B=2048 on the same card.
-
-    >>> tpu128 = ServerConfig(lwe_dimension=630, glwe_dimension=4,
-    ...     polynomial_size=256, pbs_base_log=7, pbs_level=2, ks_base_log=2,
-    ...     ks_level=6)
-    >>> import dataclasses
-    >>> [resolve_backend(dataclasses.replace(tpu128, bits=b), "auto")
-    ...  for b in (32, 64)]
-    ['ntt', 'mxu']
-    """
-    if backend == "mxu":
-        bsx.MxuPlan.from_config(cfg)
-        return backend
-    if backend == "nuss":
-        NussPlan.from_config(cfg)
-        return backend
-    if backend == "ntt":
-        _ = cfg.primes  # raises where the ntt backend cannot take cfg
-        return backend
-    if backend != "auto":
-        raise ValueError(f"backend {backend!r}: expected mxu, nuss, ntt or "
-                         "auto")
-    if cfg.bits == 32 and _takes_ntt(cfg):
-        return "ntt"
-    try:
-        bsx.MxuPlan.from_config(cfg)
-        return "mxu"
-    except NotImplementedError:
-        pass
-    try:
-        NussPlan.from_config(cfg)
-        return "nuss"
-    except (NotImplementedError, ValueError):
-        return "ntt"
-
-
 # ---------------------------------------------------------------------------
 # 128-bit (lo, hi) pairs on int64: the u64 torus carried mod 2^(64 + shift).
 # Every carry and borrow is an unsigned compare, made on int64 by flipping

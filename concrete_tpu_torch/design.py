@@ -17,7 +17,7 @@ the port of concrete_tpu/design.py, re-derives the operating point:
   server_key/mod.rs:197-279), evaluated at the tightest margin (1/8 to the
   sign boundary);
 - **cost** is `GpuCostModel`: the u32 gate on the ntt backend, what `auto`
-  runs (core/bootstrap_nuss.resolve_backend), n NTT-domain CMux steps (K9)
+  runs (core/backends.resolve_backend), n NTT-domain CMux steps (K9)
   and the keyswitch's int8 product. A step costs
   profiling.external_product_roofline's bound (the card's peak integer
   rates) over the share of that bound K9 reached at TPU128 / DEFAULT /

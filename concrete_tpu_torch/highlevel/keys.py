@@ -38,11 +38,9 @@ import torch
 
 from .. import npe
 from ..core import bootstrap as bs
-from ..core import bootstrap_mxu as bsx
-from ..core import bootstrap_ntt as bsntt
-from ..core import bootstrap_nuss as bsn
 from ..core import lwe as lwe_ops
-from ..core.ggsw import StandardBootstrapKey, bsk_to_ntt
+from ..core.backends import BACKENDS, EvaluationForms, EvaluationKey
+from ..core.ggsw import StandardBootstrapKey
 from ..core.glwe import GlweSecretKey
 from ..core.lwe import LweKeyswitchKey, LweSecretKey
 from ..csprng import EncryptionRandomGenerator, SecretRandomGenerator
@@ -50,7 +48,7 @@ from ..dispersion import Variance
 from ..ops import graphs
 from ..ops._cuda import resolve_device
 from ..params import log2_exact
-from ..torus import as_torus, from_numpy
+from ..torus import as_torus
 from .encoder import BITS, DTYPE
 from .params_presets import LWEParams, RLWEParams
 
@@ -128,7 +126,7 @@ class RLWESecretKey:
 
 
 @dataclasses.dataclass
-class LWEBSK:
+class LWEBSK(EvaluationForms):
     """Bootstrapping key (lwe_bsk.rs:20): GGSW encryptions of the input key
     bits under the RLWE key, [n, l, k+1, k+1, N] np.uint64. The rings of the
     mxu (N <= 4096) or nuss (N = 8192, 16384) backend, or the spectra of the
@@ -137,36 +135,23 @@ class LWEBSK:
     run_bootstrap and run_bootstrap_many replay one captured CUDA graph per
     signature on the card (ops/graphs.py): concrete_tpu runs each blind
     rotation as one compiled lax.scan, so its CMux loop reaches the device
-    as one program; here the whole PBS does. The key keeps the graphs and
-    their pool; a key made from another's fields (with_fast_mode, load)
-    starts with none."""
+    as one program; here the whole PBS does. The forms, the graphs and
+    their pool live in `evaluation` (core/backends.py), made anew with
+    every key, so a key made from another's fields (dataclasses.replace,
+    with_fast_mode, load) has its own."""
 
     cfg: bs.ServerConfig
     variance: float
     coefficient_bsk: np.ndarray
     device: torch.device | str | None = None   # None: the GPU (required)
     backend: str = "auto"
-    _bsk_mxu: torch.Tensor | None = dataclasses.field(default=None, repr=False)
-    _bsk_nuss: torch.Tensor | None = dataclasses.field(default=None, repr=False)
-    _bsk_ntt: torch.Tensor | None = dataclasses.field(default=None, repr=False)
-    # {(backend, cfg, lut_count_log or None): GraphedCall} and their pool
-    _graphs: dict = dataclasses.field(
-        default_factory=dict, repr=False, compare=False)
-    _graph_pool: graphs.GraphPool = dataclasses.field(
-        default_factory=graphs.GraphPool, repr=False, compare=False)
+    evaluation: EvaluationKey = dataclasses.field(
+        init=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-
-    def resolved_backend(self) -> str:
-        """"mxu", "nuss" or "ntt" (bootstrap_nuss.resolve_backend): `backend`
-        when named, else "mxu" up to N = 4096, "nuss" above and "ntt" where
-        neither takes the configuration. This keeps the toeplitz paths on
-        the u64 torus on purpose, where concrete_tpu picks ntt off the TPU:
-        there the ntt backend needs three or more CRT primes, so its CMux
-        step is the torch composition, never the two-prime kernel K9, and it
-        ran 20-33x slower than mxu per PBS on an H100."""
-        return bsn.resolve_backend(self.cfg, self.backend)
+        self.evaluation = EvaluationKey(self.cfg, self.coefficient_bsk,
+                                        self.device, self.backend)
 
     def with_fast_mode(self, *, limb_drop: int = 2,
                        levels: int | None = None) -> "LWEBSK":
@@ -179,9 +164,8 @@ class LWEBSK:
         client keys are unchanged."""
         cfg = self.cfg.with_fast_mode(limb_drop=limb_drop, levels=levels)
         return dataclasses.replace(
-            self, cfg=cfg, coefficient_bsk=self.coefficient_bsk[:, :cfg.pbs_level],
-            _bsk_mxu=None, _bsk_nuss=None, _bsk_ntt=None, _graphs={},
-            _graph_pool=graphs.GraphPool())
+            self, cfg=cfg,
+            coefficient_bsk=self.coefficient_bsk[:, :cfg.pbs_level])
 
     def bootstrap_output_variance(self, lwe_dimension: int) -> float:
         """PBS output variance, with the reduced-precision term in fast
@@ -198,59 +182,6 @@ class LWEBSK:
             ).get_variance()
         return var
 
-    @property
-    def bsk_mxu(self) -> torch.Tensor:
-        """Toeplitz rotation rings [n, R, 2(k+1), 2N] int32 on the device."""
-        if self._bsk_mxu is None:
-            bsx.MxuPlan.from_config(self.cfg)
-            self._bsk_mxu = from_numpy(
-                bsx.bsk_to_mxu(self.coefficient_bsk, self.cfg), self.device)
-        return self._bsk_mxu
-
-    @property
-    def bsk_nuss(self) -> torch.Tensor:
-        """Nussbaumer-domain rings [n, 2L*R', 3(k+1), 2M] int32, converted
-        on the device (bsk_to_nuss)."""
-        if self._bsk_nuss is None:
-            self._bsk_nuss = bsn.bsk_to_nuss(self.coefficient_bsk, self.cfg,
-                                             device=self.device)
-        return self._bsk_nuss
-
-    @property
-    def bsk_ntt(self) -> torch.Tensor:
-        """NTT spectra [n, P, l, k+1, k+1, N] int32, converted on the device
-        (ggsw.bsk_to_ntt)."""
-        if self._bsk_ntt is None:
-            self._bsk_ntt = bsk_to_ntt(self.coefficient_bsk,
-                                       self.cfg.primes, BITS,
-                                       device=self.device)
-        return self._bsk_ntt
-
-    def _graphed(self, lut_count_log: int | None) -> graphs.GraphedCall:
-        """The key's GraphedCall of its backend's PBS (lut_count_log None)
-        or multi-LUT PBS: fn(bsk, accumulator, cts), the backend's key
-        tensor static."""
-        backend = self.resolved_backend()
-        slot = (backend, self.cfg, lut_count_log)
-        if slot not in self._graphs:
-            if lut_count_log is None:
-                fn, name = functools.partial(_PBS[backend], self.cfg), "pbs"
-            else:
-                fn = functools.partial(_PBS_MANY[backend], self.cfg,
-                                       lut_count_log=lut_count_log)
-                name = f"pbs_many_lut lut_count_log={lut_count_log}"
-            self._graphs[slot] = graphs.GraphedCall(
-                fn, 1, name=f"{name} ({backend})", pool=self._graph_pool)
-        return self._graphs[slot]
-
-    def _bootstrap_key(self) -> torch.Tensor:
-        backend = self.resolved_backend()
-        if backend == "nuss":
-            return self.bsk_nuss
-        if backend == "ntt":
-            return self.bsk_ntt
-        return self.bsk_mxu
-
     def run_bootstrap(self, accumulator, cts) -> torch.Tensor:
         """PBS of `cts` [..., n+1] against `accumulator` [k+1, N] (u64 numpy
         or int64 tensors) -> [..., k*N+1] int64 on the device, replayed
@@ -258,7 +189,10 @@ class LWEBSK:
         with graphs.span("highlevel.to_device"):
             acc = as_torus(accumulator, self.device, BITS)
             cts = as_torus(cts, self.device, BITS)
-        return self._graphed(None)(self._bootstrap_key(), acc, cts)
+        ev = self.evaluation
+        call = ev.graphed(None, lambda: functools.partial(
+            BACKENDS[ev.backend].bootstrap, ev.cfg), 1, "pbs")
+        return call(ev.form(), acc, cts)
 
     def run_bootstrap_many(self, accumulator, cts,
                            lut_count_log: int) -> torch.Tensor:
@@ -268,7 +202,12 @@ class LWEBSK:
         with graphs.span("highlevel.to_device"):
             acc = as_torus(accumulator, self.device, BITS)
             cts = as_torus(cts, self.device, BITS)
-        return self._graphed(lut_count_log)(self._bootstrap_key(), acc, cts)
+        ev = self.evaluation
+        call = ev.graphed(lut_count_log, lambda: functools.partial(
+            BACKENDS[ev.backend].bootstrap_many_lut, ev.cfg,
+            lut_count_log=lut_count_log),
+            1, f"pbs_many_lut lut_count_log={lut_count_log}")
+        return call(ev.form(), acc, cts)
 
     @classmethod
     def new(cls, sk_input: LWESecretKey, sk_output: RLWESecretKey,
@@ -335,14 +274,6 @@ class LWEBSK:
                               int(d["base_log"]), int(d["level"]))
             return cls(cfg=cfg, variance=float(d["variance"]),
                        coefficient_bsk=data, device=device, backend=backend)
-
-
-# fn(cfg, bsk, accumulator, cts[, lut_count_log=]) of each backend
-_PBS = {"mxu": bsx.bootstrap_mxu, "nuss": bsn.bootstrap_nuss,
-        "ntt": bsntt.bootstrap}
-_PBS_MANY = {"mxu": bsx.bootstrap_many_lut_mxu,
-             "nuss": bsn.bootstrap_many_lut_nuss,
-             "ntt": bsntt.bootstrap_many_lut}
 
 
 @dataclasses.dataclass

@@ -65,6 +65,7 @@ from ..core import bootstrap_mxu as bsx
 from ..core import bootstrap_ntt as bsntt
 from ..core import bootstrap_nuss as bsn
 from ..core import checks
+from ..core.backends import BACKENDS
 from ..core import lwe as lwe_ops
 from ..core.bootstrap import ServerConfig, rotation_start, sample_extract
 from ..math import ntt, polynomial
@@ -201,14 +202,10 @@ def gate_pipeline_dp(cfg: ServerConfig, mesh: DeviceMesh, backend: str = "ntt"):
     (K9 on the u32 torus with two primes). fn(bsk, ksk8, lut, lin) returns
     this rank's rows (fn.out_axes = ("dp", "tp")); it makes no collective,
     so it is graphed on any mesh."""
-    if backend == "mxu":
-        bsx.MxuPlan.from_config(cfg)
-        bks = bsx.bootstrap_keyswitch_mxu
-    elif backend == "ntt":
-        cfg.primes  # noqa: B018 - refuses a configuration outside the envelope
-        bks = bsntt.bootstrap_keyswitch
-    else:
+    if backend not in ("mxu", "ntt"):
         raise ValueError(f"backend {backend!r}: 'mxu' or 'ntt'")
+    BACKENDS[backend].check(cfg)
+    bks = BACKENDS[backend].bootstrap_keyswitch
 
     def run(bsk, ksk8, lut, lin):
         return bks(cfg, bsk, ksk8, lut, shard(lin, mesh, (("dp", "tp"),)))

@@ -119,8 +119,7 @@ class _Rank:
 
     def run(self, lin: torch.Tensor) -> torch.Tensor:
         """This rank's rows of lin through the pipeline."""
-        k = self.key
-        return self.fn(k._bootstrap_keys(), k.ksk8, k._lut(), lin)
+        return self.fn(*self.key.gate_keys(), lin)
 
     def gather(self, out: torch.Tensor) -> torch.Tensor:
         return pmesh.gather(out, self.mesh, self.fn.out_axes)

@@ -13,9 +13,9 @@ from concrete_tpu import boolean as boolean_jax
 from concrete_tpu.core import bootstrap as bs_jax
 from concrete_tpu_torch import boolean as boolean_t
 from concrete_tpu_torch import highlevel as hl_t
+from concrete_tpu_torch.core import backends as backends_t
 from concrete_tpu_torch.core import bootstrap as bs_t
 from concrete_tpu_torch.core import bootstrap_mxu as bsx_t
-from concrete_tpu_torch.core import bootstrap_nuss as bsn_t
 from concrete_tpu_torch.dispersion import StandardDev
 from concrete_tpu_torch.params import BooleanParameters
 
@@ -35,7 +35,7 @@ def test_auto_u32_matches_jax_off_tpu(n, k, base_log, level):
                                   bsk_standard=None)
     cfg = bs_t.ServerConfig(*args)
     assert sks_j.resolved_backend() == "ntt"
-    assert bsn_t.resolve_backend(cfg, "auto") == "ntt"
+    assert backends_t.resolve_backend(cfg, "auto") == "ntt"
     assert cfg.primes == sks_j.cfg.primes
 
 
@@ -46,7 +46,7 @@ def test_auto_u64_keeps_toeplitz_paths(n):
     cfg = bs_t.ServerConfig(16, 1, n, 7, 3, 2, 5, bits=64)
     assert cfg.primes
     want = "mxu" if n <= 4096 else "nuss"
-    assert bsn_t.resolve_backend(cfg, "auto") == want
+    assert backends_t.resolve_backend(cfg, "auto") == want
     bsk = hl_t.LWEBSK(hl_t.LWEBSK._config(16, 1, n, 7, 3), 0.0,
                       np.zeros((16, 3, 2, 2, n), np.uint64), device="cpu")
     assert bsk.resolved_backend() == want
@@ -61,7 +61,7 @@ def test_auto_u32_without_primes_keeps_toeplitz_order(monkeypatch, n, want):
 
     monkeypatch.setattr(bs_t.ServerConfig, "primes", property(refuse))
     cfg = bs_t.ServerConfig(16, 1, n, 7, 2, 2, 5)
-    assert bsn_t.resolve_backend(cfg, "auto") == want
+    assert backends_t.resolve_backend(cfg, "auto") == want
 
 
 def test_mxu_refusal_names_the_large_n_backends():

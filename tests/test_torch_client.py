@@ -265,7 +265,8 @@ def test_gen_keys_and_gates_match_jax(params, ks):
         want = sks_j.mux(*(jnp.asarray(c) for c in cts))
         np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
         assert cks_t.decrypt(got).tolist() == [True, True, False, False]
-        pbs = bsntt_t.bootstrap(sks_t.cfg, sks_t.bsk_ntt, sks_t._lut(),
+        lut = sks_t.gate_keys()[2]
+        pbs = bsntt_t.bootstrap(sks_t.cfg, sks_t.bsk_ntt, lut,
                                 from_numpy(cts[0]))
         np.testing.assert_array_equal(cks_t.decrypt_big_key(pbs),
                                       cks_j.decrypt_big_key(to_numpy(pbs)))

@@ -5,7 +5,7 @@ for the six gates and _mux_pipeline. On CPU tensors a GraphedCall
 (ops/graphs.py) runs its function, so these hold the functions that the
 card captures; tests/test_torch_graphs_cuda.py holds the graphs' replays
 to the eager calls on the card. Also the launch accounting of a capture
-and the graph cache of a key whose keys change."""
+and the graph cache of a key whose keys change, on ServerKey and LWEBSK."""
 
 import dataclasses
 
@@ -22,6 +22,7 @@ from concrete_tpu.core import bootstrap_nuss as bsn_jax
 from concrete_tpu.core import lwe as lwe_jax
 from concrete_tpu.core.ggsw import bsk_to_ntt as bsk_to_ntt_jax
 from concrete_tpu_torch import boolean as boolean_t
+from concrete_tpu_torch import highlevel as hl_t
 from concrete_tpu_torch import torus
 from concrete_tpu_torch.boolean import server_key as sk_t
 from concrete_tpu_torch.core import bootstrap as bs_t
@@ -135,7 +136,7 @@ def _pipelines(keys, backend, name):
     sj = dataclasses.replace(sks, backend=backend)
     st = dataclasses.replace(port, backend=backend)
     keys_j = (sj._bootstrap_keys(), sj._keyswitch_key())
-    keys_t = (st._bootstrap_keys(), st.ksk8, st._lut())
+    keys_t = st.gate_keys()
     ins_t = [torus.from_numpy(c) for c in cts]
     if name == "mux":
         want = sk_jax._mux_pipeline(sj.cfg, backend)(*keys_j, *cts)
@@ -218,24 +219,82 @@ def test_graphed_call_on_the_cpu_runs_its_function():
         call(torch.ones(3), [1, 2, 3])
 
 
-def test_graph_cache_is_new_where_the_keys_change(keys):
-    """with_fast_mode, to and load give a key whose graphs, pool and warmed
-    tiers start empty: a copy sharing its parent's graphs would replay the
-    parent's keys."""
-    _, _, port, _, cts, path = keys
-    key = dataclasses.replace(port, backend="mxu", _graphs={},
-                              _graph_pool=graphs.GraphPool(),
-                              _warmed_tiers=set())
-    key.warmup([8], gates=("and",), mux=True)
-    assert set(s[:2] for s in key._graphs) == {("and", "mxu"), ("mux", "mxu")}
-    assert key._warmed_tiers == {8}
-    for copy in (key.with_fast_mode(), key.to("cpu"),
-                 boolean_t.ServerKey.load(str(path), device="cpu")):
-        assert copy._graphs == {} and copy._graphs is not key._graphs
-        assert copy._graph_pool is not key._graph_pool
-        assert copy._warmed_tiers == set()
+@pytest.fixture(scope="module")
+def hl_key(tmp_path_factory):
+    """A tiny LWEBSK on the CPU, its file, and fn(key) running its PBS on
+    an accumulator and two ciphertexts (u64)."""
+    sk = hl_t.LWESecretKey.new(hl_t.LWEParams(8, -40), secret_seed=1)
+    rsk = hl_t.RLWESecretKey.new(hl_t.RLWEParams(64, 1, -50), secret_seed=2)
+    bsk = hl_t.LWEBSK.new(sk, rsk, 7, 3, mask_seed=3, noise_seed=4,
+                          device="cpu")
+    path = tmp_path_factory.mktemp("hl_graph_keys") / "bsk.npz"
+    bsk.save(str(path))
+    rng = np.random.default_rng(6)
+    acc = np.zeros((2, 64), np.uint64)
+    acc[1] = rng.integers(0, 1 << 63, 64, dtype=np.uint64)
+    cts = rng.integers(0, 1 << 63, (2, 9), dtype=np.uint64)
+    return bsk, path, lambda k: k.run_bootstrap(acc, cts)
+
+
+def _key_case(kind, keys, hl_key):
+    """A key of `kind` on mxu made by plain dataclasses.replace, fn(key)
+    running it, the names of the graphs that run makes, and its class and
+    file (load)."""
+    if kind == "ServerKey":
+        _, _, port, _, cts, path = keys
+        return (dataclasses.replace(port, backend="mxu"),
+                lambda k: k.and_(*cts[:2]), {"and (mxu)"},
+                boolean_t.ServerKey, path)
+    bsk, path, run = hl_key
+    return (dataclasses.replace(bsk, backend="mxu"), run, {"pbs (mxu)"},
+            hl_t.LWEBSK, path)
+
+
+@pytest.mark.parametrize("kind", ["ServerKey", "LWEBSK"])
+def test_graph_cache_is_new_where_the_keys_change(keys, hl_key, kind):
+    """with_fast_mode, to (ServerKey's) and load give a key whose graphs,
+    pool (and warmed tiers) start empty: a copy sharing its parent's graphs
+    would replay the parent's keys. `to` moves the forms."""
+    key, run, names, cls, path = _key_case(kind, keys, hl_key)
+    ev = key.evaluation
+    if kind == "ServerKey":
+        key.warmup([8], gates=("and",), mux=True)
+        assert key._warmed_tiers == {8}
+        names = names | {"mux (mxu)"}
+    else:
+        run(key)
+    assert {c.name for c in ev.graphs.values()} == names
+    assert all(c.pool is ev.pool for c in ev.graphs.values())
+    copies = [key.with_fast_mode(), cls.load(str(path), device="cpu")]
+    if kind == "ServerKey":
+        copies.append(key.to("cpu"))
+        assert set(copies[-1].evaluation.forms) == set(ev.forms) == {"mxu"}
+    for copy in copies:
+        assert copy.evaluation.graphs == {} and copy.evaluation is not ev
+        assert copy.evaluation.pool is not ev.pool
+        assert getattr(copy, "_warmed_tiers", set()) == set()
     fast = key.with_fast_mode(levels=1)
-    fast.and_(*cts[:2])
-    (slot,) = fast._graphs
-    assert slot[2] == fast.cfg and slot[2].pbs_level == 1
-    assert not any(s[2] == fast.cfg for s in key._graphs)
+    run(fast)
+    (call,) = fast.evaluation.graphs.values()
+    assert fast.evaluation.cfg == fast.cfg and fast.cfg.pbs_level == 1
+    assert fast.bsk_mxu.shape[1] == key.bsk_mxu.shape[1] // key.cfg.pbs_level
+    assert call not in ev.graphs.values()
+    assert {c.name for c in ev.graphs.values()} == names
+
+
+@pytest.mark.parametrize("kind", ["ServerKey", "LWEBSK"])
+def test_replaced_backend_runs_with_graphs_of_its_own(keys, hl_key, kind):
+    """dataclasses.replace(key, backend="ntt") alone gives a key that runs
+    the ntt backend, with a form, graphs and a pool of its own, and the
+    bits of its mxu parent (the backends are bit-identical)."""
+    key, run, names, _, _ = _key_case(kind, keys, hl_key)
+    want = run(key)
+    other = dataclasses.replace(key, backend="ntt")
+    assert torch.equal(run(other), want)
+    assert other.resolved_backend() == "ntt"
+    assert set(other.evaluation.forms) == {"ntt"}
+    assert set(key.evaluation.forms) == {"mxu"}
+    assert {c.name for c in other.evaluation.graphs.values()} == {
+        n.replace("(mxu)", "(ntt)") for n in names}
+    assert {c.name for c in key.evaluation.graphs.values()} == names
+    assert other.evaluation.pool is not key.evaluation.pool

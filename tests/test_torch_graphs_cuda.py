@@ -132,7 +132,7 @@ def _key(dev, backend, level=2):
 
 def _eager(sks, name, cts):
     """The gate's pipeline called eagerly on the card (no graph)."""
-    keys = (sks._bootstrap_keys(), sks.ksk8, sks._lut())
+    keys = sks.gate_keys()
     if name == "mux":
         return sk._mux_pipeline(sks.cfg, sks.resolved_backend())(*keys, *cts)
     return sk._gate_pipeline(sks.cfg, sks.resolved_backend(), name)(*keys,
@@ -173,8 +173,10 @@ def test_shuffled_replays_across_gates_and_tiers(dev, backend):
         a, b, c = bits
         truth = {"and": a & b, "xor": a ^ b, "mux": np.where(a, b, c)}[name]
         np.testing.assert_array_equal(cks.decrypt(got), truth)
-    slots = [s for s in sks._graphs if s[1] == backend]
-    assert sum(len(sks._graphs[s].graphs) for s in slots) == 6
+    calls = sks.evaluation.graphs.values()
+    assert {c.name for c in calls} == {f"{g} ({backend})"
+                                       for g in ("and", "xor", "mux")}
+    assert sum(len(c.graphs) for c in calls) == 6
 
 
 def test_fast_mode_twin_has_graphs_of_its_own(dev):
@@ -184,7 +186,8 @@ def test_fast_mode_twin_has_graphs_of_its_own(dev):
     cks, sks = _key(dev, "mxu", level=3)
     sks.warmup([32])
     fast = sks.with_fast_mode(levels=2)
-    assert fast._graphs == {} and fast._graph_pool is not sks._graph_pool
+    assert fast.evaluation.graphs == {}
+    assert fast.evaluation.pool is not sks.evaluation.pool
     rng = np.random.default_rng(6)
     bits = rng.integers(0, 2, size=(2, 32)).astype(bool)
     cts = [torus.from_numpy(cks.encrypt(v, mask_seed=7 + j, noise_seed=9 + j),

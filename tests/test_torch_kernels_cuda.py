@@ -667,7 +667,7 @@ def test_gate_pipeline_dp_tp_mxu_on_a_world_of_one_nccl(dev, tmp_path):
     lin = (torus.from_numpy(cks.encrypt(a, mask_seed=5, noise_seed=6), dev)
            + torus.from_numpy(cks.encrypt(b, mask_seed=7, noise_seed=8), dev))
     lin[:, -1] -= 1 << 29                                        # AND
-    args = (sks.bsk_mxu, sks.ksk8, sks._lut(), lin)
+    args = (sks.bsk_mxu, *sks.gate_keys()[1:], lin)
     torch.cuda.set_device(0)
     store = dist.FileStore(str(tmp_path / "store"), 1)
     dist.init_process_group("nccl", store=store, rank=0, world_size=1)

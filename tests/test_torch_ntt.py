@@ -30,6 +30,7 @@ from concrete_tpu.params import (
 from concrete_tpu_torch import boolean as boolean_t
 from concrete_tpu_torch import highlevel as hl_t
 from concrete_tpu_torch import torus
+from concrete_tpu_torch.core import backends as backends_t
 from concrete_tpu_torch.core import bootstrap as bs_t
 from concrete_tpu_torch.core import bootstrap_mxu as bsx_t
 from concrete_tpu_torch.core import bootstrap_ntt as bsntt_t
@@ -354,9 +355,9 @@ def test_server_key_ntt_backend_is_carried(tiny_keys, tmp_path):
     ntt = dataclasses.replace(sks_t, backend="ntt")
     ntt.bsk_ntt  # noqa: B018 - build the cache
     moved = ntt.to("cpu")
-    assert moved.backend == "ntt" and moved._bsk_ntt is not None
+    assert moved.backend == "ntt" and "ntt" in moved.evaluation.forms
     fast = ntt.with_fast_mode(levels=1)
-    assert fast.backend == "ntt" and fast._bsk_ntt is None
+    assert fast.backend == "ntt" and "ntt" not in fast.evaluation.forms
     assert fast.cfg.primes == bs_jax.ServerConfig.from_boolean_parameters(
         TINY).with_fast_mode(limb_drop=0, levels=1).primes
     assert fast.bsk_ntt.shape[2] == 1
@@ -391,14 +392,14 @@ def test_highlevel_bsk_on_ntt_matches_jax(tmp_path):
         torus.to_numpy(bsk_t.run_bootstrap_many(acc, cts, 1)),
         np.asarray(bsk_j.run_bootstrap_many(jnp.asarray(acc), jnp.asarray(cts), 1)))
     fast = bsk_t.with_fast_mode(limb_drop=2)
-    assert fast._bsk_ntt is None
+    assert "ntt" not in fast.evaluation.forms
     assert torch.equal(fast.run_bootstrap(acc, cts), got)
 
 
 def test_resolve_backend_takes_ntt():
     _, tiny = _cfgs(4, 1, 64, 7, 2)
-    assert bsn_t.resolve_backend(tiny, "ntt") == "ntt"
-    assert bsn_t.resolve_backend(tiny, "auto") == "ntt"
+    assert backends_t.resolve_backend(tiny, "ntt") == "ntt"
+    assert backends_t.resolve_backend(tiny, "auto") == "ntt"
     # N = 8192 with k + 1 = 401: mxu refuses N > 4096 and every Nussbaumer
     # chunking passes the int32 accumulation bound; the ntt backend takes it
     _, wide = _cfgs(4, 400, 8192, 2, 3)
@@ -406,9 +407,9 @@ def test_resolve_backend_takes_ntt():
         bsx_t.MxuPlan.from_config(wide)
     with pytest.raises((NotImplementedError, ValueError)):
         bsn_t.NussPlan.from_config(wide)
-    assert bsn_t.resolve_backend(wide, "auto") == "ntt"
+    assert backends_t.resolve_backend(wide, "auto") == "ntt"
     with pytest.raises(NotImplementedError):
-        bsn_t.resolve_backend(bs_t.ServerConfig(4, 1, 64, 31, 2, 2, 8, bits=64),
+        backends_t.resolve_backend(bs_t.ServerConfig(4, 1, 64, 31, 2, 2, 8, bits=64),
                               "ntt")
     with pytest.raises(ValueError):
-        bsn_t.resolve_backend(tiny, "fft")
+        backends_t.resolve_backend(tiny, "fft")

@@ -160,9 +160,9 @@ def test_server_key_backend_is_carried(tiny_keys, tmp_path):
     nuss = dataclasses.replace(sks_t, backend="nuss")
     nuss.bsk_nuss  # noqa: B018 - build the cache
     moved = nuss.to("cpu")
-    assert moved.backend == "nuss" and moved._bsk_nuss is not None
+    assert moved.backend == "nuss" and "nuss" in moved.evaluation.forms
     fast = nuss.with_fast_mode(levels=1)
-    assert fast.backend == "nuss" and fast._bsk_nuss is None
+    assert fast.backend == "nuss" and "nuss" not in fast.evaluation.forms
     assert fast.bsk_nuss.shape[1] == nuss.bsk_nuss.shape[1] // nuss.cfg.pbs_level
     nuss.save(str(tmp_path / "k.npz"))
     assert boolean_t.ServerKey.load(str(tmp_path / "k.npz"),

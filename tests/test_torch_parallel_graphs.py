@@ -158,7 +158,8 @@ def hl_keys(request, tmp_path_factory):
 
 def test_highlevel_pbs_equals_concrete_tpu(hl_keys):
     """run_bootstrap and run_bootstrap_many through the key's graphed calls
-    give concrete_tpu's bits; one slot per (backend, cfg, lut_count_log)."""
+    give concrete_tpu's bits; one graphed call per lut_count_log (None
+    for run_bootstrap), each on the key's pool."""
     bsk_j, bsk_t, acc, cts = hl_keys
     backend = bsk_t.resolved_backend()
     want = np.asarray(bsk_j.run_bootstrap(jnp.asarray(acc), jnp.asarray(cts)))
@@ -169,10 +170,12 @@ def test_highlevel_pbs_equals_concrete_tpu(hl_keys):
     got = bsk_t.run_bootstrap_many(acc, cts[:4], 1)
     assert got.shape == (2, 4, 257)
     np.testing.assert_array_equal(torus.to_numpy(got), want)
-    assert set(bsk_t._graphs) == {(backend, bsk_t.cfg, None),
-                                  (backend, bsk_t.cfg, 1)}
+    ev = bsk_t.evaluation
+    assert set(ev.graphs) == {None, 1} and ev.cfg == bsk_t.cfg
+    assert {c.name for c in ev.graphs.values()} == {
+        f"pbs ({backend})", f"pbs_many_lut lut_count_log=1 ({backend})"}
     assert all(isinstance(c, graphs.GraphedCall) and c.n_static == 1
-               and c.pool is bsk_t._graph_pool for c in bsk_t._graphs.values())
+               and c.pool is ev.pool for c in ev.graphs.values())
 
 
 def test_highlevel_graph_cache_is_new_where_the_keys_change(tmp_path):
@@ -187,14 +190,15 @@ def test_highlevel_graph_cache_is_new_where_the_keys_change(tmp_path):
     cts = np.random.default_rng(6).integers(0, 1 << 63, (2, 9),
                                             dtype=np.uint64)
     bsk.run_bootstrap(acc, cts)
-    assert bsk._graphs
+    ev = bsk.evaluation
+    assert ev.graphs
     bsk.save(str(tmp_path / "bsk.npz"))
     fast = bsk.with_fast_mode(levels=2)
     loaded = hl_t.LWEBSK.load(str(tmp_path / "bsk.npz"), device="cpu")
     for copy in (fast, loaded):
-        assert copy._graphs == {} and copy._graphs is not bsk._graphs
-        assert copy._graph_pool is not bsk._graph_pool
+        assert copy.evaluation.graphs == {} and copy.evaluation is not ev
+        assert copy.evaluation.pool is not ev.pool
     fast.run_bootstrap(acc, cts)
-    (slot,) = fast._graphs
-    assert slot[1] == fast.cfg and slot[1].pbs_level == 2
-    assert not any(s[1] == fast.cfg for s in bsk._graphs)
+    (call,) = fast.evaluation.graphs.values()
+    assert fast.evaluation.cfg == fast.cfg and fast.cfg.pbs_level == 2
+    assert call not in ev.graphs.values() and ev.cfg.pbs_level == 3

@@ -223,8 +223,8 @@ def test_highlevel_replay_equals_eager(dev, backend, n, N):
         assert torch.equal(got, want)
         assert torch.equal(bsk.run_bootstrap_many(acc, cts[:8], 1),
                            many(bsk.cfg, key, acc_t, cts_t[:8], 1))
-    assert all(len(c.graphs) == 1 for c in bsk._graphs.values())
-    assert len(bsk._graphs) == 2
+    assert all(len(c.graphs) == 1 for c in bsk.evaluation.graphs.values())
+    assert len(bsk.evaluation.graphs) == 2
 
 
 def test_gloo_tp_pipeline_is_eager_by_construction(dev, tmp_path):

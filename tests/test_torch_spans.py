@@ -195,7 +195,7 @@ def test_no_plain_counter_key_reads_as_a_batch_shape(gate_keys,
     assert {graphs.SPAN_NS, graphs.SPAN_CALLS, graphs.CAPTURE_NS,
             server_key.GATE_ROWS, bootstrap_mxu.PAD_BYTES} <= set(plain)
     keys = [k for c in plain for k in c.by_key]
-    keys += [g.name for g in (*sks._graphs.values(), *bsk._graphs.values())]
+    keys += [g.name for k in (sks, bsk) for g in k.evaluation.graphs.values()]
     assert keys and not [k for k in keys if SHAPE_KEY.search(k)]
 
 

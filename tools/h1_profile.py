@@ -85,7 +85,7 @@ def main():
             lin = torus.from_numpy(ca, dev) * 2
             lin[:, -1] -= 1 << (32 - PLAINTEXT_LOG_SCALING_FACTOR)
             for pipeline, fn, bsk in cells(name, sks, mesh):
-                args = (bsk, sks.ksk8, sks._lut(), lin)
+                args = (bsk, *sks.gate_keys()[1:], lin)
                 fn.fn(*args)
                 stats = profile_call(lambda: fn.fn(*args))
                 print(json.dumps({"params": name, "pipeline": pipeline,
