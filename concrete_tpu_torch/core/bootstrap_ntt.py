@@ -13,8 +13,11 @@ the three boolean presets meet, each CMux step of the blind rotation is one
 CUDA kernel on the card (K9, `ntt_cmux`, csrc/ntt_kernels.cu): the rotation,
 the signed gadget digits, per prime the forward NTT of every digit
 polynomial, the pointwise MAC against the GGSW spectra, the inverse NTT, the
-two-prime Garner recombination and the accumulate, every transform in
-shared memory, several batch rows a block (`block_geometry`). Elsewhere
+two-prime Garner recombination and the accumulate. It has two paths, chosen
+by shape (`path`): at N in WARP_N (the presets' 256, 512, 1024) a warp holds
+each polynomial's transform in its registers (`warp_geometry`); elsewhere
+every transform runs in shared memory, several batch rows a block
+(`block_geometry`). The launch counts' shape key ends in the path. Elsewhere
 (the u64 torus has three or more primes) the step is the stacked torch
 composition, `ntt_cmux_plain`, as the JAX package runs its XLA form there.
 On CPU tensors `ntt_cmux` runs the plain version; `ntt_cmux.launches`
@@ -126,6 +129,11 @@ _SMEM_WORDS = 232448 // 4
 N_MAX = 16384
 # the kernel's limits: output polynomials and batch rows one block takes
 COLS_MAX, ROWS_MAX = 5, 4
+# the warp path: the N at which one warp holds a polynomial's transform
+# in its registers (N / 32 words a lane), and the threads a block may take
+# (kWarpThreads in the kernel: a warp per polynomial and prime of one row)
+WARP_N = (256, 512, 1024)
+WARP_THREADS_MAX = 512
 # shared memory the rows of one block may fill together when every digit
 # polynomial fits, in words: 72 KB, which gives 2 rows at TPU128 and 1 at
 # DEFAULT and TFHE_LIB, the fastest of 1-4 on the H100 (PERF.md, PR 5)
@@ -172,6 +180,61 @@ def block_geometry(ks1: int, n: int, level: int,
         return cols, _SMEM_WORDS // _padded(n) - 2 * cols, 1
     return cols, digits, max(1, min(ROWS_MAX, batch,
                                     ROWS_SMEM_WORDS // per_row))
+
+
+def path(ks1: int, n: int) -> str:
+    """K9's path for a shape: "warp" where a warp holds a polynomial's
+    transform in its registers (N in WARP_N, and a warp per polynomial and
+    prime of a row, 2*(k+1), within WARP_THREADS_MAX threads), else
+    "block".
+
+    >>> [path(ks1, n) for ks1, n in [(5, 256), (3, 512), (2, 1024),
+    ...                              (2, 64), (2, 8192), (9, 512)]]
+    ['warp', 'warp', 'warp', 'block', 'block', 'block']
+    """
+    return ("warp" if n in WARP_N and 64 * ks1 <= WARP_THREADS_MAX
+            else "block")
+
+
+def _warp_words(ks1: int, n: int, level: int, per_pass: int) -> int:
+    """Shared-memory words of a block on the warp path, N + N/32 words a
+    polynomial: the pass's spectra (per_pass primes, l*(k+1) each) and a
+    scratch polynomial per prime and output polynomial, 2*(k+1); at N = 1024
+    the scratch polynomials take the spectra's slots (with one prime a pass,
+    the two primes' results lie past them).
+
+    >>> [_warp_words(3, 512, 2, 2) // 528, _warp_words(2, 1024, 3, 2) // 1056]
+    [18, 12]
+    """
+    if n == 1024:
+        return (2 * level if per_pass == 2 else level + 2) * ks1 * (n + n // 32)
+    return (per_pass * level + 2) * ks1 * (n + n // 32)
+
+
+def warp_geometry(ks1: int, n: int, level: int) -> tuple[int]:
+    """(per_pass,) of K9's warp path, one batch row a block: the primes
+    whose spectra a pass holds, both where they fit beside the scratch
+    polynomials in 227 KB, else one (two passes).
+
+    >>> [warp_geometry(k1, n, l) for k1, n, l in
+    ...  [(5, 256, 2), (3, 512, 2), (2, 1024, 3), (8, 1024, 4)]]
+    [(2,), (2,), (2,), (1,)]
+    """
+    return (2 if _warp_words(ks1, n, level, 2) <= _SMEM_WORDS else 1),
+
+
+def launch_geometry(ks1: int, n: int, level: int,
+                    batch: int) -> tuple[str, tuple[int, ...]]:
+    """(path, geometry) of K9's launch for a shape: warp_geometry on the
+    warp path, block_geometry on the block path.
+
+    >>> launch_geometry(3, 512, 2, 16), launch_geometry(2, 8192, 3, 16)
+    (('warp', (2,)), ('block', (2, 2, 1)))
+    """
+    how = path(ks1, n)
+    if how == "warp":
+        return how, warp_geometry(ks1, n, level)
+    return how, block_geometry(ks1, n, level, batch)
 
 
 def ntt_cmux_plain(cfg: ServerConfig, acc: torch.Tensor, a_hat: torch.Tensor,
@@ -248,11 +311,12 @@ def ntt_cmux(cfg: ServerConfig, acc: torch.Tensor, a_hat: torch.Tensor,
         raise ValueError("out must not alias acc")
     if b:
         tables, consts = _device_tables(n, cfg.primes, acc.device)
-        _cuda.launch("ctt_ntt_cmux", acc, a_hat, ggsw_i, tables, consts, out,
-                     b, ks1, n, cfg.pbs_level, cfg.pbs_base_log,
-                     *block_geometry(ks1, n, cfg.pbs_level, b))
+        how, geometry = launch_geometry(ks1, n, cfg.pbs_level, b)
+        _cuda.launch("ctt_ntt_cmux_warp" if how == "warp" else "ctt_ntt_cmux",
+                     acc, a_hat, ggsw_i, tables, consts, out, b, ks1, n,
+                     cfg.pbs_level, cfg.pbs_base_log, *geometry)
         _cuda.count_launch(ntt_cmux, B=b, ks1=ks1, N=n, l=cfg.pbs_level,
-                           bl=cfg.pbs_base_log)
+                           bl=cfg.pbs_base_log, path=how)
     return out
 
 

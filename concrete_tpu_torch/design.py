@@ -35,8 +35,8 @@ Example:
     >>> gate_error_log2(DEFAULT_PARAMETERS) < -25  # exact backend beats the
     ...     # reference grade (no f64-FFT rounding noise on this path)
     True
-    >>> round(GpuCostModel().step_us(DEFAULT_PARAMETERS) / 173.5, 1)
-    1.0
+    >>> round(GpuCostModel().step_us(DEFAULT_PARAMETERS) / 106.7, 1)
+    1.1
 """
 
 from __future__ import annotations
@@ -230,10 +230,10 @@ def recommend_rlwe(nb_bit_precision: int, lwe_dimension: int = 630,
 # cost: the ntt gate on the H100
 # ---------------------------------------------------------------------------
 
-# K9's device us a step at B=2048 (chip_smoke.py phase A, NVIDIA H100 80GB
-# HBM3, 700.00 W; PERF.md section 6)
-K9_ANCHORS = ((TPU128_PARAMETERS, 142.4), (DEFAULT_PARAMETERS, 173.5),
-              (TFHE_LIB_PARAMETERS, 292.8))
+# K9's device us a step at B=2048, the warp path (tools/k9_sweep.py, NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md section 6)
+K9_ANCHORS = ((TPU128_PARAMETERS, 95.3), (DEFAULT_PARAMETERS, 106.7),
+              (TFHE_LIB_PARAMETERS, 227.4))
 # the TPU128 ntt AND's int8 GEMM (the keyswitch product) at B=2048, ms
 # (chip_smoke.py's profile of that call, the same card)
 KS_ANCHOR = (TPU128_PARAMETERS, 0.6)

@@ -13,7 +13,7 @@ Each C entry point launches one kernel on the stream it is given and
 returns a CUDA error code; :func:`launch` raises when that is not 0.
 
     >>> sorted(SOURCES), len(_SIGNATURES)
-    (['fused_kernels', 'mxu_kernels', 'ntt_kernels', 'nuss_kernels'], 12)
+    (['fused_kernels', 'mxu_kernels', 'ntt_kernels', 'nuss_kernels'], 13)
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ _SIGNATURES = {
     "ctt_rotdig_fwd_nuss64": ("nuss_kernels", 3, 7),
     "ctt_fused_cmux": ("fused_kernels", 4, 6),
     "ctt_ntt_cmux": ("ntt_kernels", 6, 8),
+    "ctt_ntt_cmux_warp": ("ntt_kernels", 6, 6),
 }
 
 

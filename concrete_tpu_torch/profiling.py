@@ -316,6 +316,7 @@ def measure(fn, *args, reps: int = 3) -> float:
 # device kernels by name, as the profiler shows them (demangled): the
 # port's, then the int8 GEMM that torch._int_mm runs
 KERNEL_KINDS = (("ntt_cmux_kernel", "K9 ntt_cmux"),
+                ("ntt_cmux_warp_kernel", "K9 ntt_cmux"),
                 ("fused_cmux_kernel", "K8 fused_cmux"),
                 ("build_tables", "K1 build_tables"),
                 ("rotdig_recombine", "K3 rotdig_recombine"),

@@ -5,6 +5,8 @@ JAX package's Pallas kernels run in interpret mode, at the shapes of
 tests/test_bootstrap_mxu.py, and the fused blind rotation on the CPU.
 Tolerance 0: every step is integer arithmetic mod 2^32."""
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -124,24 +126,70 @@ def test_ntt_cmux_host_tables_match_big_integers(preset):
     assert consts[7] == p0 * p1 % R
 
 
-@pytest.mark.parametrize("n", [16, 64, 256, 1024, 4096, 8192, 16384])
+# every N from 16 to 16384, and the grid of shapes a configuration may take
+ALL_N = [1 << e for e in range(4, 15)]
+SHAPE_GRID = [(ks1, level, b) for ks1 in range(2, 9) for level in range(1, 5)
+              for b in (1, 3, 2048)]
+
+
+def _block_geometry_rule(ks1, n, level, b):
+    """The block path's geometry rule, written out: (cols, group, rows)
+    from 227 KB (58,112 words), polynomials of N + N/8 words, at most 5
+    columns, 4 rows and 72 KB of rows."""
+    padded, words = n + n // 8, 232448 // 4
+    cols = max(1, min(ks1, 5, (words // padded - 1) // 2))
+    per_row = (2 * cols + 2 * level * ks1) * padded
+    if per_row > words:
+        return cols, words // padded - 2 * cols, 1
+    return cols, 2 * level * ks1, max(1, min(4, b, 72 * 1024 // 4 // per_row))
+
+
+@pytest.mark.parametrize("n", ALL_N)
 def test_ntt_cmux_block_geometry_fits(n):
     """K9's block geometry for every k+1 and level a configuration may
     take: within the kernel's limits (cols <= 5, rows <= 4 and the batch),
     a digit group of at least one polynomial and at most all 2*l*(k+1),
     and shared memory of rows*(2*cols + group) padded polynomials (N + N/8
     words) within the 227 KB a block may take (less the kernel's 32 static
-    bytes)."""
-    for ks1 in range(2, 9):
-        for level in range(1, 5):
-            for b in (1, 3, 2048):
-                cols, group, rows = bsntt_t.block_geometry(ks1, n, level, b)
-                assert 1 <= cols <= min(ks1, bsntt_t.COLS_MAX)
-                assert 1 <= group <= 2 * level * ks1
-                assert 1 <= rows <= min(b, bsntt_t.ROWS_MAX)
-                assert rows == 1 or group == 2 * level * ks1
-                assert rows * (2 * cols + group) * (n + n // 8) * 4 \
-                    <= 232448 - 32
+    bytes); the rule itself unchanged."""
+    for ks1, level, b in SHAPE_GRID:
+        cols, group, rows = bsntt_t.block_geometry(ks1, n, level, b)
+        assert (cols, group, rows) == _block_geometry_rule(ks1, n, level, b)
+        assert 1 <= cols <= min(ks1, bsntt_t.COLS_MAX)
+        assert 1 <= group <= 2 * level * ks1
+        assert 1 <= rows <= min(b, bsntt_t.ROWS_MAX)
+        assert rows == 1 or group == 2 * level * ks1
+        assert rows * (2 * cols + group) * (n + n // 8) * 4 \
+            <= 232448 - 32
+
+
+@pytest.mark.parametrize("n", ALL_N)
+def test_ntt_cmux_path_follows_n_and_the_warp_geometry_fits(n):
+    """K9's path is the warp path exactly at bootstrap_ntt.WARP_N, for every
+    shape of the grid, and the launch takes that path's geometry: on the
+    block path block_geometry; on the warp path one row a block of 2*(k+1)
+    warps within the kernel's launch bound (kWarpThreads in the source),
+    both primes a pass unless they do not fit, and shared memory of
+    (per_pass*l + 2)*(k+1) polynomials of N + N/32 words (at N = 1024,
+    where the scratch polynomials take the spectra's slots, 2*l*(k+1), or
+    (l + 2)*(k+1) with one prime a pass) within 227 KB."""
+    src = (Path(bsntt_t.__file__).parent.parent / "csrc" / "ntt_kernels.cu").read_text()
+    assert f"constexpr int kWarpThreads = {bsntt_t.WARP_THREADS_MAX};" in src
+    assert bsntt_t.WARP_N == (256, 512, 1024)
+    for ks1, level, b in SHAPE_GRID:
+        how, geometry = bsntt_t.launch_geometry(ks1, n, level, b)
+        assert how == ("warp" if n in bsntt_t.WARP_N else "block")
+        assert how == bsntt_t.path(ks1, n)
+        if how == "block":
+            assert geometry == bsntt_t.block_geometry(ks1, n, level, b)
+            continue
+        (per_pass,) = geometry
+        assert 2 * ks1 * 32 <= bsntt_t.WARP_THREADS_MAX
+        polys = {2: 2 * level, 1: level + 2} if n == 1024 else \
+            {2: 2 * level + 2, 1: level + 2}
+        words = lambda pp: polys[pp] * ks1 * (n + n // 32)  # noqa: E731
+        assert per_pass == (2 if words(2) * 4 <= 232448 else 1)
+        assert words(per_pass) * 4 <= 232448
 
 
 # -- K8 ---------------------------------------------------------------------------------------

@@ -501,33 +501,76 @@ def _ntt_cfg(k, n, bl=7, lv=2, bits=32, n_lwe=4):
                            ks_base_log=2, ks_level=3, bits=bits)
 
 
-# every N of the shared-memory layouts, and batches that are no multiple of
-# the rows a block takes (1, 2, 3 or 4): B = 1, a few rows, 2048 + 3
-NTT_CMUX_SHAPES = [(k, n, b) for n in (16, 256, 512, 1024, 8192, 16384)
+# every N of both paths' layouts (the warp path at bootstrap_ntt.WARP_N,
+# the block path below and above it), and batches that are no multiple of
+# the rows a block takes: B = 1, a few rows, 2048 + 3
+NTT_CMUX_SHAPES = [(k, n, b) for n in (16, 64, 256, 512, 1024, 4096, 8192,
+                                       16384)
                    for k in (1, 2, 4)
                    for b in ((1, 7, 2051) if n <= 1024 else (1, 3))]
 
 
-@pytest.mark.parametrize("k,n,b", NTT_CMUX_SHAPES)
-def test_ntt_cmux_kernel(dev, k, n, b):
-    """K9 at every shared-memory layout: every digit polynomial of several
-    rows in one block (up to N = 1024), the digits taken a few at a time
-    (N = 8192), the columns split over blocks (N = 8192 with k = 4, N =
-    16384), fewer butterflies than threads (N = 16); ragged row groups;
-    degrees 0, 1, N-1, N, 2N-1 and 2N; `out` a fresh buffer."""
-    cfg = _ntt_cfg(k, n)
+def _ntt_cmux_case(dev, cfg, b, seed):
+    """K9 once on the card against ntt_cmux_plain: random acc and key
+    spectra, degrees 0, 1, N-1, N, 2N-1 and 2N first, `out` a fresh buffer;
+    returns the launch's shape key."""
+    k, n, lv = cfg.glwe_dimension, cfg.polynomial_size, cfg.pbs_level
     assert bsntt.kernel_applies(cfg)
-    rng = np.random.default_rng(k * n + b)
+    rng = np.random.default_rng(seed)
     acc = _u32(rng, (k + 1, b, n), dev)
     a_hat = _degrees(rng, n, b, dev)
     ggsw = torch.from_numpy(np.stack([
-        rng.integers(0, p, size=(2, k + 1, k + 1, n), dtype=np.uint32)
+        rng.integers(0, p, size=(lv, k + 1, k + 1, n), dtype=np.uint32)
         for p in cfg.primes]).view(np.int32)).to(dev)
-    before = bsntt.ntt_cmux.launches
+    before, shapes = bsntt.ntt_cmux.launches, dict(bsntt.ntt_cmux.shapes)
     got = bsntt.ntt_cmux(cfg, acc, a_hat, ggsw, out=torch.empty_like(acc))
     assert bsntt.ntt_cmux.launches == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, bsntt.ntt_cmux_plain(cfg, acc, a_hat, ggsw))
+    (key,) = [k for k, v in bsntt.ntt_cmux.shapes.items()
+              if v != shapes.get(k, 0)]
+    return key
+
+
+@pytest.mark.parametrize("k,n,b", NTT_CMUX_SHAPES)
+def test_ntt_cmux_kernel(dev, k, n, b):
+    """K9 on both paths. The warp path (N = 256, 512, 1024): a warp per
+    polynomial, several rows a block. The block path: every digit
+    polynomial of a row in one block (N = 16, 64, 4096), the digits taken a
+    few at a time (N = 8192), the columns split over blocks (N = 8192 with
+    k = 4, N = 16384), fewer butterflies than threads (N = 16). Ragged row
+    groups; the launch's shape key names its path."""
+    key = _ntt_cmux_case(dev, _ntt_cfg(k, n), b, k * n + b)
+    path = "warp" if n in bsntt.WARP_N else "block"
+    assert key == f"B={b} ks1={k + 1} N={n} l=2 bl=7 path={path}"
+
+
+@pytest.mark.parametrize("preset,b", [
+    (name, b) for name in ("TPU128", "DEFAULT", "TFHE_LIB") for b in (7, 2051)])
+def test_ntt_cmux_kernel_at_the_presets(dev, preset, b):
+    """K9 at the boolean presets' own (k, N, l, base_log), on the warp
+    path."""
+    from concrete_tpu_torch import params
+
+    cfg = bs.ServerConfig.from_boolean_parameters(
+        getattr(params, f"{preset}_PARAMETERS"))
+    key = _ntt_cmux_case(dev, cfg, b, b + cfg.polynomial_size)
+    assert key.endswith(" path=warp")
+
+
+@pytest.mark.parametrize("k,n,bl,lv", [(7, 1024, 8, 4), (7, 256, 4, 4),
+                                       (16, 512, 8, 2)])
+def test_ntt_cmux_kernel_wide_rows(dev, k, n, bl, lv):
+    """The warp path with one prime a pass (k = 7, N = 1024, l = 4: both
+    primes' spectra do not fit), at k = 7, N = 256, and the block path
+    where a row has more polynomials than a warp-path block takes warps
+    (k = 16)."""
+    cfg = _ntt_cfg(k, n, bl, lv)
+    if n == 1024:
+        assert bsntt.warp_geometry(k + 1, n, lv) == (1,)
+    key = _ntt_cmux_case(dev, cfg, 5, k + n)
+    assert key.endswith(f" path={bsntt.path(k + 1, n)}")
+    assert key.endswith(" path=block") == (k == 16)
 
 
 # (base_log, limb_drop, N, B, in place): n_sub 1 (base_log 7) and 2
