@@ -158,12 +158,14 @@ Needs one CUDA GPU and nvcc; it imports no JAX. The phases, in order:
           (tp = 1) and the tp tier eager (gloo), as they must be.
           H3: the seven examples' main() at their published parameters and
           sizes on the card, each checking its own answers, its launches a
-          path of their own (K1, K4, recombine_acc and K9 must launch).
+          path of their own (K4, window_step and K9 must launch: the u64
+          examples' batches are small).
 
 The bounds and timers (bound_ms, time_ms, median_s, profile_call, the
 instruction counts of K4 and K9) come from concrete_tpu_torch.profiling.
 Every phase logs its kernels' launches per shape key (launches_by_shape);
-after the phases, each phase-A row of K4-K7 and recombine_acc is logged
+after the phases, each phase-A row of K4-K7, recombine_acc and
+window_step is logged
 beside the launches of its shape key on the main paths (A_launches).
 The last lines are the card's name and power limit (nvidia-smi), a
 {"kernels": [...]} JSON line and {"ok": true, "device": {...}}. Any failure
@@ -249,6 +251,8 @@ REPLACES = {
     "rotdig_fwd_nuss": (NUSS_SOURCE, "concrete_tpu/core/bootstrap_nuss.py:833"),
     "fused_external_product_acc": (FUSED_SOURCE,
                                    "concrete_tpu/ops/fused_cmux.py:77"),
+    # none of its own: K1 fused with the product and recombine after it
+    "window_step": (MXU_SOURCE, None),
     "ntt_cmux": (NTT_SOURCE, "concrete_tpu/ops/pallas_cmux.py:114"),
 }
 # the kernels each main path must launch (phase B: u32 gates, C: u64 PBS,
@@ -270,8 +274,7 @@ PATH_KERNELS = {"B": ("build_tables", "rotdig", "rotdig_recombine",
                 # ranks are other processes)
                 "H1": ("build_tables", "rotdig", "recombine_acc",
                        "recombine_inv", "rotdig_fwd_nuss", "ntt_cmux"),
-                "H3": ("build_tables", "rotdig64", "recombine_acc",
-                       "ntt_cmux")}
+                "H3": ("rotdig64", "window_step", "ntt_cmux")}
 # phase H1: the kernels each pipeline must launch in its own timed calls
 H1_KERNELS = {
     "gate_pipeline_dp mxu": ("build_tables", "rotdig", "recombine_acc"),
@@ -649,9 +652,49 @@ def kernel_cases(dev):
             lambda rings=rings, d=drop, rhs=rhs: bsx.build_tables(rings, n, d, 2, out=rhs),
             lambda rings=rings, d=drop: bsx.build_tables_plain(rings, n, d, 2),
             (rings,)))
+    cases += window_step_cases(dev, u32, u64)
     cases += nuss_kernel_cases(dev, rng, u32, u64, degrees)
     cases += ntt_kernel_cases(dev, rng, u32, degrees)
     cases += fused_kernel_cases(dev, rng, u32)
+    return cases
+
+
+def window_step_cases(dev, u32, u64):
+    """window_step at the int4 step (u64, N = 1024, k = 1, PBS bl 7 l 3)
+    with limb_drop 0 and 2 at B = 16 (an int4 small request), 32, 64 and
+    the crossover, beside the table step it replaces there (K1,
+    torch._int_mm on gemm_rows rows, recombine_acc); digits in the int8
+    range the gadget gives (|d| <= 64). The kernel writes a new tensor
+    (a copy of acc first); the blind rotation updates acc in place."""
+    cases = []
+    n = INT4["rlwe"].polynomial_size
+    for drop, b in [(0, 16), (2, 16), (0, 32), (0, 64),
+                    (0, bsx.WINDOW_MAX_BATCH)]:
+        plan = bsx.MxuPlan.from_config(_int4_config(*INT4["pbs"], drop))
+        ks1, r, lu = plan.glwe_size, plan.row_blocks, plan.limbs_used
+        acc, rings = u64((ks1, b, n)), u32((r, ks1 * 2, 2 * n))
+        d8 = (u32((b, r * n // 4)).view(torch.int8) >> 2) | 1  # |d| <= 32
+        out = torch.empty_like(acc)
+        dp, rhs, s = bsx._step_buffers(plan, b, dev)
+        macs = b * r * n * ks1 * lu * n
+
+        def table_step(p=plan, acc=acc, d8=d8, rg=rings, dp=dp, rhs=rhs, s=s,
+                       b=b):
+            dp[:b] = d8
+            bsx.build_tables(rg, p.polynomial_size, p.limb_drop, 2, out=rhs)
+            return bsx.recombine_acc(p, bsx.step_dot(dp, rhs, s, rows=b),
+                                     acc)
+
+        cases.append((
+            "window_step", f"int4 one step B={b} limb_drop={drop}",
+            lambda p=plan, acc=acc, d8=d8, rg=rings, o=out:
+                bsx.window_step(p, acc, d8, rg, out=o),
+            lambda p=plan, acc=acc, d8=d8, rg=rings:
+                bsx.window_step_plain(p, acc, d8, rg),
+            (acc, d8, rings),
+            {"op_s": 2 * macs / INT8_TENSOR_OPS_PER_S, "macs": macs,
+             "unfused": table_step,
+             "key": f"B={b} ks1={ks1} N={n} limbs={lu}"}))
     return cases
 
 

@@ -21,9 +21,11 @@ One CMux step of the blind rotation, batch B, L = bits/8 - limb_drop limbs:
                         torch._int_mm takes, gemm_rows)
     recombine_acc       acc += sum_m S_m << 8(limb_drop + m), in place
 At large batch on the u32 torus the dot-first form folds the recombine of
-step j into the digit kernel of step j+1 (rotdig_recombine, K3). On request
-(`fused=True`, u32 torus) the table build, dot and recombine of a step run
-as one kernel instead (K8, fused_external_product_acc) after K2's digits.
+step j into the digit kernel of step j+1 (rotdig_recombine, K3). At small
+batch on the u64 torus (auto_window) the table build, dot and recombine of
+a step run as one kernel after K4's digits (window_step), and no table
+reaches device memory; on request (`fused=True`, u32 torus) K8 does the
+same after K2's digits (fused_external_product_acc).
 
 Each kernel wrapper below takes its plain PyTorch version when its tensors
 lie on the CPU, and launches the hand-written CUDA kernel
@@ -630,10 +632,11 @@ FUSED_TILE = 64  # K8's column and depth tile (its row tile is 128)
 def fused_external_product_acc_plain(plan: MxuPlan, acc: torch.Tensor,
                                      d8: torch.Tensor,
                                      rings: torch.Tensor) -> torch.Tensor:
-    """acc [k+1, B, N] int32 + recombine(d8 [B, R*N] int8 @ T(rings)),
-    rings [R, k+1, 2N] int32: build_tables_plain -> int_mm ->
-    recombine_limb_planes -> add."""
-    rhs = build_tables_plain(rings, plan.polynomial_size, plan.limb_drop)
+    """acc [k+1, B, N] + recombine(d8 [B, R*N] int8 @ T(rings)), rings [R,
+    (k+1)*n_words, 2N] int32, in the torus carrier: build_tables_plain ->
+    int_mm -> recombine_limb_planes -> add."""
+    rhs = build_tables_plain(rings, plan.polynomial_size, plan.limb_drop,
+                             plan.n_words)
     return acc + recombine_limb_planes(plan, int_mm(d8, rhs))
 
 
@@ -686,8 +689,78 @@ def fused_external_product_acc(plan: MxuPlan, acc: torch.Tensor,
 
 _cuda.counter(fused_external_product_acc)
 
+WINDOW_COLS = 64  # window_step's column tile: N a multiple of it
+
+# window_step's plain version: the same composition on the u64 torus
+window_step_plain = fused_external_product_acc_plain
+
+
+def window_rows(b: int) -> int:
+    """Batch rows a window_step block owns: one m16 tile up to 64 rows,
+    two above, each further 16 or 32 rows another block of the grid
+    (tools/mxu_step_sweep.py: one tile is faster up to B = 64, two from
+    B = 128; four, at 192 registers a thread, never were).
+
+    >>> [window_rows(b) for b in (1, 16, 64, 65, 2048)]
+    [16, 16, 16, 32, 32]
+    """
+    return 16 if b <= 64 else 32
+
+
+def window_step(plan: MxuPlan, acc: torch.Tensor, d8: torch.Tensor,
+                rings: torch.Tensor, *, out: torch.Tensor | None = None):
+    """One u64 CMux step's table build, int8 product, recombine and
+    accumulate in one kernel (window_step_plain): acc [k+1, B, N] int64 +
+    recombine(d8 [B, R*N] int8 @ T(rings)), rings [R, (k+1)*2, 2N] int32,
+    every limb_drop. The kernel (csrc/mxu_kernels.cu) builds the int8
+    tiles of the toeplitz table from a window of the rings on chip, never
+    writes the table to device memory, multiplies them on the int8 tensor
+    cores and adds each ring block's recombined partial sum into `out`
+    with 64-bit atomic adds (exact mod 2^64 in any order). `out` may be
+    `acc` itself, which is then updated in place; any other `out` gets a
+    copy of acc first. d8 has B rows: no padding.
+
+    >>> plan = MxuPlan.from_config(ServerConfig(lwe_dimension=1,
+    ...     glwe_dimension=1, polynomial_size=64, pbs_base_log=7, pbs_level=3,
+    ...     ks_base_log=2, ks_level=8, bits=64))
+    >>> acc = torch.ones((2, 3, 64), dtype=torch.int64)
+    >>> d8 = torch.zeros((3, plan.row_blocks * 64), dtype=torch.int8)
+    >>> rings = torch.zeros((plan.row_blocks, 4, 128), dtype=torch.int32)
+    >>> torch.equal(window_step(plan, acc, d8, rings), acc)
+    True
+    """
+    if plan.bits != 64:
+        raise ValueError("window_step runs the u64 torus only")
+    ks1, b, n = acc.shape
+    r = plan.row_blocks
+    _check(acc, "acc", torch.int64, (plan.glwe_size, b, plan.polynomial_size))
+    _check(d8, "d8", torch.int8, (b, r * n))
+    _check(rings, "rings", torch.int32, (r, ks1 * plan.n_words, 2 * n))
+    if out is not None:
+        _check(out, "out", torch.int64, acc.shape)
+    if _on_cpu(acc, d8, rings, out):
+        res = window_step_plain(plan, acc, d8, rings)
+        return res if out is None else out.copy_(res)
+    if n % WINDOW_COLS:
+        raise ValueError(f"polynomial_size {n}: window_step takes multiples "
+                         f"of {WINDOW_COLS}")
+    if out is None:
+        out = acc.clone()
+    elif out.data_ptr() != acc.data_ptr():
+        out.copy_(acc)
+    if b:
+        _check_kernel_operands(n, acc, d8, rings, out)
+        _cuda.launch("ctt_window_step", d8, rings, out, b, ks1, n, r,
+                     plan.limbs_used, plan.limb_drop, window_rows(b))
+        _cuda.count_launch(window_step, B=b, ks1=ks1, N=n,
+                           limbs=plan.limbs_used)
+    return out
+
+
+_cuda.counter(window_step)
+
 KERNELS = (build_tables, rotdig, rotdig_recombine, rotdig64, recombine_acc,
-           fused_external_product_acc)
+           fused_external_product_acc, window_step)
 
 
 def launch_counts() -> dict[str, int]:
@@ -772,6 +845,40 @@ def auto_defer(plan: MxuPlan, batch: int) -> bool:
     return s_bytes > 100e6 and (batch >= 4096 or s_bytes >= 200e6)
 
 
+# the largest batch that takes window_step (auto_window): the crossover
+# of tools/mxu_step_sweep.py on an H100
+WINDOW_MAX_BATCH = 256
+
+
+def auto_window(plan: MxuPlan, batch: int, blocks: int | None = None) -> bool:
+    """Run the CMux step as one window_step (no table in device memory)
+    for this (plan, batch, ring blocks)? auto_defer's companion in
+    scan_for, a pure function of what the scan sees: the u64 torus, N a
+    multiple of WINDOW_COLS, rings that hold all R row blocks (`blocks`,
+    None for all; a tensor-parallel rank's share keeps the table and its
+    partial sum), and a batch up to WINDOW_MAX_BATCH.
+
+    On an H100 (tools/mxu_step_sweep.py, int4 widths, µs a step, limb_drop
+    0 / 2) the window step undercuts K1 + torch._int_mm + recombine_acc
+    up to B = 256: 10.2 / 9.5 against 82.0 / 63.2 at B = 16, 97.3 / 88.3
+    against 124.6 / 91.0 at 256; at 512 it loses (191.2 / 176.2 against
+    164.4 / 147.9): the product is compute-bound there, and cuBLASLt's
+    tiles, which read each table byte for many rows, beat mma.sync (K8's
+    lesson on the u32 torus).
+
+    >>> int4 = MxuPlan(lwe_dimension=630, glwe_size=2, polynomial_size=1024,
+    ...     base_log=7, level=3, n_sub=1, ks_base_log=2, ks_level=8, bits=64)
+    >>> [auto_window(int4, b) for b in (1, 16, WINDOW_MAX_BATCH,
+    ...                                 WINDOW_MAX_BATCH + 1, 2048)]
+    [True, True, True, False, False]
+    >>> auto_window(int4, 16, blocks=int4.row_blocks // 2)
+    False
+    """
+    return (plan.bits == 64 and plan.polynomial_size % WINDOW_COLS == 0
+            and (blocks is None or blocks == plan.row_blocks)
+            and batch <= WINDOW_MAX_BATCH)
+
+
 def _step_buffers(plan: MxuPlan, b: int, device, blocks: int | None = None):
     """The per-step d8 / RHS / S buffers, allocated once per rotation; the
     RHS holds `blocks` ring blocks (a tensor-parallel rank's) or all R.
@@ -814,6 +921,12 @@ def step_dot(d8, rhs, s, c0: int = 0, reduce=None, rows: int | None = None):
     return s if reduce is None else reduce(s)
 
 
+# CMux steps of the mxu loops, keyed "rows=<batch> path=<path>": "window"
+# (window_step, no table) or "table" (K1 and the int8 product); read by
+# tests. Not "B=": only the kernel wrappers key their counts by shape
+STEPS = graphs.Counter("mxu_steps")
+
+
 def _plain_scan(plan: MxuPlan, bsk_rings, acc, a_hats, block0: int = 0,
                 reduce=None):
     """One CMux step per mask element: digits (K2 / K4), table (K1), dot
@@ -821,6 +934,7 @@ def _plain_scan(plan: MxuPlan, bsk_rings, acc, a_hats, block0: int = 0,
     both tori. A tensor-parallel rank passes its ring blocks (bsk_rings
     [n, R/tp, ...] from block `block0` on) and `reduce` (step_dot)."""
     n, b = plan.polynomial_size, acc.shape[1]
+    STEPS.add(a_hats.shape[0], f"rows={b} path=table")
     d8, rhs, s = _step_buffers(plan, b, acc.device, bsk_rings.shape[1])
     d8_b = d8[:b]
     digits = rotdig if plan.bits == 32 else rotdig64
@@ -841,6 +955,7 @@ def _deferred_scan(plan: MxuPlan, bsk_rings, acc, a_hats, block0: int = 0,
     a_hat = 0 rotates by X^0 (its digits are discarded). u32 torus only.
     block0 / reduce as in _plain_scan."""
     n, b = plan.polynomial_size, acc.shape[1]
+    STEPS.add(a_hats.shape[0], f"rows={b} path=table")
     d8, rhs, s = _step_buffers(plan, b, acc.device, bsk_rings.shape[1])
     d8_b = d8[:b]
     acc = acc.clone()
@@ -850,6 +965,25 @@ def _deferred_scan(plan: MxuPlan, bsk_rings, acc, a_hats, block0: int = 0,
         build_tables(bsk_rings[j], n, plan.limb_drop, out=rhs)
         rotdig_recombine(plan, step_dot(d8, rhs, s, block0 * n, reduce, b),
                          acc, a_next[j], acc_out=acc, d8_out=d8_b)
+    return acc
+
+
+def _window_scan(plan: MxuPlan, bsk_rings, acc, a_hats, block0: int = 0,
+                 reduce=None):
+    """One CMux step per mask element at small batch on the u64 torus:
+    digits (K4), then table build, dot, recombine and accumulate in one
+    kernel (window_step), in place; d8 has the batch's rows and no table
+    is allocated. The rings hold all R blocks (auto_window), so block0 is
+    0 and reduce None, the hooks of a tensor-parallel group of one."""
+    if block0 or reduce is not None:
+        raise ValueError("the window step takes all R ring blocks")
+    n, r, b = plan.polynomial_size, plan.row_blocks, acc.shape[1]
+    STEPS.add(a_hats.shape[0], f"rows={b} path=window")
+    d8 = torch.empty((b, r * n), dtype=torch.int8, device=acc.device)
+    acc = acc.clone()
+    for i in range(a_hats.shape[0]):
+        rotdig64(plan, acc, a_hats[i], out=d8)
+        window_step(plan, acc, d8, bsk_rings[i], out=acc)
     return acc
 
 
@@ -866,14 +1000,27 @@ def _fused_scan(plan: MxuPlan, bsk_rings, acc, a_hats):
     return acc
 
 
-def scan_for(plan: MxuPlan, batch: int, fused: bool = False):
+def scan_for(plan: MxuPlan, batch: int, fused: bool = False,
+             blocks: int | None = None):
     """The CMux loop of a blind rotation: K8's with fused, else the
-    dot-first loop where auto_defer takes the batch (u32), else the plain
-    one. The tensor-parallel pipeline (parallel/mesh.py) runs the same."""
+    dot-first loop where auto_defer takes the batch (u32), else the window
+    loop where auto_window takes it (u64, small batch, rings of `blocks`
+    row blocks, None for all R), else the plain one. The tensor-parallel
+    pipeline (parallel/mesh.py) runs the same with its rank's blocks.
+
+    >>> int4 = MxuPlan(lwe_dimension=630, glwe_size=2, polynomial_size=1024,
+    ...     base_log=7, level=3, n_sub=1, ks_base_log=2, ks_level=8, bits=64)
+    >>> [scan_for(int4, b).__name__ for b in (16, 2048)]
+    ['_window_scan', '_plain_scan']
+    >>> scan_for(int4, 16, blocks=3).__name__
+    '_plain_scan'
+    """
     if fused:
         return _fused_scan
     if plan.bits == 32 and auto_defer(plan, batch):
         return _deferred_scan
+    if auto_window(plan, batch, blocks):
+        return _window_scan
     return _plain_scan
 
 
@@ -887,11 +1034,12 @@ def blind_rotate_mxu(cfg: ServerConfig, bsk_rings: torch.Tensor,
     and lwe [..., n+1] in the torus carrier (int32 / int64). Returns the
     rotated accumulator [..., k+1, N], bit-identical to concrete_tpu's
     blind_rotate_mxu. The u32 torus takes the dot-first loop where
-    auto_defer says so, as the JAX package does; the u64 torus always takes
-    the plain loop. `fused=True` (the JAX package's CONCRETE_TPU_FUSED=1)
-    takes the plain loop with K8 in place of the table, dot and recombine;
-    it runs the u32 torus only and raises ValueError on u64, where the JAX
-    package would ignore it."""
+    auto_defer says so, as the JAX package does; the u64 torus takes the
+    window loop where auto_window says so, else the plain loop (the JAX
+    package's, which builds every step's table). `fused=True` (the JAX
+    package's CONCRETE_TPU_FUSED=1) takes the plain loop with K8 in place
+    of the table, dot and recombine; it runs the u32 torus only and raises
+    ValueError on u64, where the JAX package would ignore it."""
     plan = MxuPlan.from_config(cfg)
     if fused and plan.bits != 32:
         raise ValueError("fused=True runs the u32 torus only")

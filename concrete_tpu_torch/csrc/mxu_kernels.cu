@@ -1,8 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels of the toeplitz ("mxu") blind
 // rotation: K1 build_tables, K2 rotdig, K3 rotdig_recombine (u32 torus) and
 // K4 rotdig64 (u64 torus), which replace the Pallas kernels of
-// concrete_tpu/core/bootstrap_mxu.py and compute the same bits, and
-// recombine_acc (both tori), which has no Pallas counterpart; the plain
+// concrete_tpu/core/bootstrap_mxu.py and compute the same bits,
+// recombine_acc (both tori), which has no Pallas counterpart, and
+// window_step (u64 torus, small batch), K1 fused with the product and the
+// recombine that follow it; the plain
 // PyTorch versions beside the wrappers
 // (concrete_tpu_torch/core/bootstrap_mxu.py) define what each one returns.
 //
@@ -529,6 +531,273 @@ __global__ void __launch_bounds__(kTableThreads) build_tables_kernel(
   }
 }
 
+// window_step. Replaces no Pallas kernel of its own: it fuses K1
+// (concrete_tpu/core/bootstrap_mxu.py:_build_tables_pallas), the XLA dot
+// after it and the recombine and accumulate of one u64 CMux step, at small
+// batch. d8 [B, R*N] i8 (K4's digits), rings [R, (k+1)*2, 2N] u32 (one
+// step's bsk_to_mxu rings, two word planes a u64 coefficient), out [k+1, B,
+// N] u64 -> out += sum_li S_li << 8(limb_drop + li) mod 2^64, S = d8 @ the
+// toeplitz table of the rings (build_tables_plain), bit for bit.
+// Bound on the card at the int4 shape, B = 16: the int8 operations, 2 * 16
+// * 6144 * 16384 = 3.2 G (1.6 us at 1,979 TOP/s), and the bytes of d8,
+// the rings and acc, ~0.6 MB (0.2 us). The unfused step writes the 100 MB
+// table and reads it back for 16 rows: 60 us at 3.35 TB/s.
+// Design:
+// - No table in device memory. Entry (r*N + i, (kj, li, c)) is byte
+//   limb_drop + li of ring[r][kj][(c - i) mod 2N], so a block that owns 64
+//   coefficients and dn rows i0.. of one ring block's contraction needs
+//   dn + 64 words of each word plane. It stages them once, reversed and
+//   split into L byte planes (K1's 4 x 4 byte transpose): entry (i0 + i,
+//   c) is then byte 63 - (c - cb) + i of its limb's plane.
+// - The fragments come from those planes in registers. The contraction's
+//   order is free as long as A and B agree, so in a chunk of KC rows
+//   thread t of an mma quad takes the KC/4 consecutive rows from KC/4 * t
+//   on: an n8 tile's B fragment is then 4-byte words of one byte run, and
+//   the next n8 tile's run is the same one 8 bytes earlier (the toeplitz
+//   shift). A thread loads 15 + KC/16 plane words a chunk and funnel-shifts
+//   them once into all 8 tiles' fragments; A comes from the block's d8
+//   rows in shared memory (cp.async), two 16-byte loads a row and chunk.
+// - int8 tensor cores: mma.sync m16n8k32, int32 sums, exact (the plan
+//   keeps R*N*64*128 < 2^31); a warp owns one limb, all 64 columns and
+//   MT m16 tiles of batch rows (16 * MT rows a block).
+// - The contraction splits over the grid: by ring block (R blocks a
+//   column tile), and each ring block in `splits` parts where the grid
+//   would give the 132 SMs fewer than two blocks each (two at the int4
+//   B = 16 shape: 384 blocks in place of 192, whose SMs of two blocks
+//   held the mma.sync pipe twice as long as those of one). Each block
+//   recombines its partial sums (the limbs meet in shared memory) and adds
+//   them into out with 64-bit atomic adds: they wrap mod 2^64, so any
+//   order gives the same bits, and no second pass is needed.
+constexpr int kWinCols = 64;  // coefficients of a block's column tile
+constexpr int kWinTiles = kWinCols / 8;  // its n8 tiles
+constexpr int kWinLead = 2 * (kWinTiles - 1);  // fragment words before
+                                               // tile 0's k-step 0
+constexpr int kWinRedStride = kWinCols + 8;  // int32 row of the limb sums
+
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+
+// d += a (16x32 s8, row) * b (32x8 s8, col), wrapping int32
+__device__ __forceinline__ void mma_s8(int32_t d[4], const uint32_t a[4],
+                                       const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// shared bytes of a window_step block of depth dn: the d8 rows and the
+// byte planes, later the limbs' int32 sums
+size_t window_smem(int rows, int dn, int limbs) {
+  const size_t stage = static_cast<size_t>(rows) * (dn + 16) +
+                       static_cast<size_t>(limbs) * (dn + kWinCols);
+  const size_t red = static_cast<size_t>(limbs) * 16 * kWinRedStride * 4;
+  return stage > red ? stage : red;
+}
+
+template <int MT, int KC>
+__global__ void __launch_bounds__(256)
+    window_step_kernel(const int8_t* __restrict__ d8,
+                       const uint32_t* __restrict__ rings,
+                       unsigned long long* out, int batch, int ks1, int n,
+                       int splits, int limbs, int limb_drop) {
+  constexpr int kRows = 16 * MT;
+  constexpr int kRun = KC / 4;     // contraction rows a thread takes a chunk
+  constexpr int kSteps = KC / 32;  // mma k-steps a chunk
+  constexpr int kF = kWinLead + 2 * kSteps;  // fragment words a chunk
+  extern __shared__ __align__(16) uint8_t smem8[];
+  const int dn = n / splits;         // the block's contraction rows
+  const int a_stride = dn + 16;      // 16-byte loads of 8 rows on 32 banks
+  const int q_stride = dn + kWinCols;
+  uint8_t* a_s = smem8;                      // [kRows][a_stride]
+  uint8_t* q_s = smem8 + kRows * a_stride;   // [limbs][q_stride]
+  const int cb = blockIdx.x * kWinCols;
+  const int r = blockIdx.y / splits;         // ring block, rows i0.. of it
+  const int i0 = (blockIdx.y - r * splits) * dn;
+  const int groups = gridDim.z / ks1;
+  const int kj = blockIdx.z / groups;
+  const int b0 = (blockIdx.z - kj * groups) * kRows;
+  const size_t depth = static_cast<size_t>(gridDim.y / splits) * n;  // R*N
+
+  // the block's d8 columns r*N + i0.., rows past the batch zero
+  const int parts = dn / 16;
+  for (int i = threadIdx.x; i < kRows * parts; i += blockDim.x) {
+    const int row = i / parts;
+    const int part = i - row * parts;
+    const bool valid = b0 + row < batch;
+    const int8_t* src =
+        d8 + (valid ? (b0 + row) * depth + static_cast<size_t>(r) * n + i0 +
+                          16 * part
+                    : 0);
+    cp_async16_zfill(a_s + row * a_stride + 16 * part, src, valid ? 16 : 0);
+  }
+  cp_async_commit();
+  // plane li, byte u = byte (limb_drop + li) % 4 of word plane (limb_drop
+  // + li) / 4 of ring[(cb + 63 - i0 - u) mod 2N]; the four ring words of
+  // a plane word are one aligned 16-byte load (cb and i0 are multiples of
+  // 64)
+  const int words = q_stride / 4;
+  const uint32_t wrap = static_cast<uint32_t>(2 * n - 1);
+  const uint32_t c_lo = static_cast<uint32_t>(cb + kWinCols - 4 - i0);
+  for (int it = threadIdx.x; it < 2 * words; it += blockDim.x) {
+    const int w = it / words;
+    const uint32_t v = 4u * (it - w * words);
+    const int j_lo = max(limb_drop - 4 * w, 0);
+    const int j_hi = min(limb_drop + limbs - 4 * w, 4);
+    if (j_hi <= j_lo) continue;
+    const uint32_t* ring =
+        rings + (static_cast<size_t>(r) * ks1 * 2 + kj * 2 + w) * 2 * n;
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(
+        ring + ((c_lo - v) & wrap)));
+    uint32_t t4[4];
+    transpose4x4(x.w, x.z, x.y, x.x, t4);
+    for (int j = j_lo; j < j_hi; ++j) {
+      reinterpret_cast<uint32_t*>(q_s + (4 * w + j - limb_drop) *
+                                            q_stride)[v / 4] = t4[j];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;  // the limb
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // mma group: A row, B column
+  const int t = lane & 3;   // its thread: the contraction rows
+  // tile nt's entry (kb + kRun*t + x, 8*nt + g) is plane byte 63 - g -
+  // 8*nt + kb + kRun*t + x: fragment word j of a chunk is the plane's
+  // bytes from 4*(first + j) + sh, and tile nt's k-step s takes words
+  // kWinLead - 2*nt + 2*s (+1)
+  const uint32_t* plane = reinterpret_cast<const uint32_t*>(
+      q_s + warp * q_stride);
+  const int first = ((kWinCols - 1 - g) >> 2) + (kRun / 4) * t - kWinLead;
+  const uint32_t sh = 8u * ((3 - g) & 3);
+  int32_t sum[MT][kWinTiles][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kWinTiles; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[mt][nt][i] = 0;
+
+  for (int kb = 0; kb < dn; kb += KC) {
+    const uint32_t* src = plane + (kb >> 2) + first;
+    uint32_t f[kF];
+    uint32_t lo = src[0];
+#pragma unroll
+    for (int j = 0; j < kF; ++j) {
+      const uint32_t hi = src[j + 1];
+      f[j] = __funnelshift_r(lo, hi, sh);
+      lo = hi;
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint8_t* arow = a_s + (16 * mt + g) * a_stride + kb + kRun * t;
+      uint32_t a_lo[kRun / 4], a_hi[kRun / 4];  // rows g and g + 8
+#pragma unroll
+      for (int q = 0; q < kRun / 16; ++q) {
+        const uint4 x = *reinterpret_cast<const uint4*>(arow + 16 * q);
+        const uint4 y =
+            *reinterpret_cast<const uint4*>(arow + 8 * a_stride + 16 * q);
+        a_lo[4 * q] = x.x, a_lo[4 * q + 1] = x.y;
+        a_lo[4 * q + 2] = x.z, a_lo[4 * q + 3] = x.w;
+        a_hi[4 * q] = y.x, a_hi[4 * q + 1] = y.y;
+        a_hi[4 * q + 2] = y.z, a_hi[4 * q + 3] = y.w;
+      }
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) {
+        const uint32_t a[4] = {a_lo[2 * s], a_hi[2 * s], a_lo[2 * s + 1],
+                               a_hi[2 * s + 1]};
+#pragma unroll
+        for (int nt = 0; nt < kWinTiles; ++nt) {
+          const uint32_t b[2] = {f[kWinLead - 2 * nt + 2 * s],
+                                 f[kWinLead + 1 - 2 * nt + 2 * s]};
+          mma_s8(sum[mt][nt], a, b);
+        }
+      }
+    }
+  }
+
+  // the limbs meet in shared memory; each output word is recombined once
+  // and added into out
+  __syncthreads();  // every warp is done with the d8 rows and the planes
+  int32_t* red = reinterpret_cast<int32_t*>(smem8);  // [limbs][16][stride]
+  int32_t* mine = red + warp * 16 * kWinRedStride;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < kWinTiles; ++nt) {
+      *reinterpret_cast<int2*>(mine + g * kWinRedStride + 8 * nt + 2 * t) =
+          make_int2(sum[mt][nt][0], sum[mt][nt][1]);
+      *reinterpret_cast<int2*>(mine + (g + 8) * kWinRedStride + 8 * nt +
+                               2 * t) = make_int2(sum[mt][nt][2],
+                                                  sum[mt][nt][3]);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 16 * kWinCols; i += blockDim.x) {
+      const int row = i / kWinCols;
+      const int col = i - row * kWinCols;
+      const int b = b0 + 16 * mt + row;
+      if (b < batch) {
+        unsigned long long x = 0;
+        for (int li = 0; li < limbs; ++li) {
+          x += static_cast<unsigned long long>(static_cast<long long>(
+                   red[(li * 16 + row) * kWinRedStride + col]))
+               << (8 * (limb_drop + li));
+        }
+        atomicAdd(out + (static_cast<size_t>(kj) * batch + b) * n + cb + col,
+                  x);
+      }
+    }
+    __syncthreads();  // red is rewritten by the next m16 tile
+  }
+}
+
+template <int MT, int KC>
+int launch_window_step(const void* d8, const void* rings, void* out,
+                       int batch, int ks1, int n, int r_blocks, int splits,
+                       int limbs, int limb_drop, cudaStream_t stream) {
+  const size_t smem = window_smem(16 * MT, n / splits, limbs);
+  static size_t raised = 48 * 1024;  // the dynamic shared bytes allowed
+  if (smem > raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        window_step_kernel<MT, KC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised = smem;
+  }
+  const int groups = (batch + 16 * MT - 1) / (16 * MT);
+  window_step_kernel<MT, KC>
+      <<<dim3(n / kWinCols, r_blocks * splits, ks1 * groups), 32 * limbs,
+         smem, stream>>>(static_cast<const int8_t*>(d8),
+                         static_cast<const uint32_t*>(rings),
+                         static_cast<unsigned long long*>(out), batch, ks1, n,
+                         splits, limbs, limb_drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KC>
+int window_step_rows(const void* d8, const void* rings, void* out, int batch,
+                     int ks1, int n, int r_blocks, int splits, int limbs,
+                     int limb_drop, int rows, cudaStream_t stream) {
+  switch (rows) {
+    case 16:
+      return launch_window_step<1, KC>(d8, rings, out, batch, ks1, n,
+                                       r_blocks, splits, limbs, limb_drop,
+                                       stream);
+    case 32:
+      return launch_window_step<2, KC>(d8, rings, out, batch, ks1, n,
+                                       r_blocks, splits, limbs, limb_drop,
+                                       stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 int row_threads(int n) {  // one thread per 4 coefficients, at most 1024
   const int t = n / 4;
   return t < 1024 ? t : 1024;
@@ -676,6 +945,28 @@ int ctt_recombine_acc64(const void* s, const void* acc, void* out, int batch,
                         void* stream) {
   return recombine_acc<uint64_t>(s, acc, out, batch, ks1, n, limbs_used,
                                  limb_drop, static_cast<cudaStream_t>(stream));
+}
+
+// rows: batch rows a block, 16 or 32
+int ctt_window_step(const void* d8, const void* rings, void* out, int batch,
+                    int ks1, int n, int r_blocks, int limbs, int limb_drop,
+                    int rows, void* stream) {
+  if (batch < 1 || ks1 < 1 || r_blocks < 1 || n < kWinCols ||
+      (n & (n - 1)) || limbs < 1 || limb_drop < 0 || limbs + limb_drop > 8 ||
+      (rows != 16 && rows != 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto st = static_cast<cudaStream_t>(stream);
+  // each ring block in two where the grid gives an SM fewer than two
+  // blocks (its depth kept a multiple of 64)
+  const long long blocks = static_cast<long long>(n / kWinCols) * r_blocks *
+                           ks1 * ((batch + rows - 1) / rows);
+  const int splits = blocks < 2 * kSms && n >= 2 * kWinCols ? 2 : 1;
+  return n / splits >= 128
+             ? window_step_rows<128>(d8, rings, out, batch, ks1, n, r_blocks,
+                                     splits, limbs, limb_drop, rows, st)
+             : window_step_rows<64>(d8, rings, out, batch, ks1, n, r_blocks,
+                                    splits, limbs, limb_drop, rows, st);
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Each source under ``csrc/`` (``mxu_kernels.cu``: K1-K4 and recombine_acc;
-``nuss_kernels.cu``: K5-K7; ``fused_kernels.cu``: K8; ``ntt_kernels.cu``:
-K9) is compiled by ``nvcc`` for Hopper (sm_90a) into its own shared
-library with a plain C interface, loaded with ctypes. The builds run at
+Each source under ``csrc/`` (``mxu_kernels.cu``: K1-K4, recombine_acc and
+window_step; ``nuss_kernels.cu``: K5-K7; ``fused_kernels.cu``: K8;
+``ntt_kernels.cu``: K9) is compiled by ``nvcc`` for Hopper (sm_90a) into
+its own shared library with a plain C interface, loaded with ctypes. The
+builds run at
 first use, all sources at once (one ``nvcc`` each, in parallel), in
 ``concrete_tpu_torch/_build/``, and again whenever a source or the flags
 change (a library's file name carries their hash). Nothing here runs at
@@ -13,7 +14,7 @@ Each C entry point launches one kernel on the stream it is given and
 returns a CUDA error code; :func:`launch` raises when that is not 0.
 
     >>> sorted(SOURCES), len(_SIGNATURES)
-    (['fused_kernels', 'mxu_kernels', 'ntt_kernels', 'nuss_kernels'], 13)
+    (['fused_kernels', 'mxu_kernels', 'ntt_kernels', 'nuss_kernels'], 14)
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ _SIGNATURES = {
     "ctt_rotdig_recombine": ("mxu_kernels", 5, 8),
     "ctt_recombine_acc": ("mxu_kernels", 3, 5),
     "ctt_recombine_acc64": ("mxu_kernels", 3, 5),
+    "ctt_window_step": ("mxu_kernels", 3, 7),
     "ctt_recombine_inv": ("nuss_kernels", 2, 6),
     "ctt_recombine_inv64": ("nuss_kernels", 2, 6),
     "ctt_rotdig_fwd_nuss": ("nuss_kernels", 3, 7),

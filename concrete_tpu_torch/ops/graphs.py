@@ -225,16 +225,34 @@ def _origin(exc: BaseException) -> tuple[str, BaseException]:
 
 class GraphPool:
     """A CUDA graph memory pool (``torch.cuda.graph_pool_handle()``), made at
-    the first capture into it; the graphs of one key share one."""
+    the first capture into it; the graphs of one key share one. `graphs`
+    counts the graphs captured into it that are kept: once the last is
+    dropped the allocator has released the pool, which then refuses a
+    capture, so the next capture makes a new one."""
 
     def __init__(self):
         self._handle = None
+        self.graphs = 0
 
     @property
     def handle(self):
         if self._handle is None:
             self._handle = torch.cuda.graph_pool_handle()
         return self._handle
+
+    def kept(self):
+        self.graphs += 1
+
+    def dropped(self):
+        self.graphs -= 1
+        if not self.graphs:
+            self._handle = None
+
+
+def _drop_graph(graphs: dict, pool: GraphPool, key):
+    """Drop graph `key` of a call (one of its static tensors was freed)."""
+    if graphs.pop(key, None) is not None:
+        pool.dropped()
 
 
 @dataclasses.dataclass
@@ -347,8 +365,9 @@ class GraphedCall:
                 graph = _capture(self.fn, static, inputs, self.pool,
                                  self.name)
             self.graphs[key] = graph
+            self.pool.kept()
             for t in static:    # the ids stay the tensors' own while kept
-                weakref.finalize(t, self.graphs.pop, key, None)
+                weakref.finalize(t, _drop_graph, self.graphs, self.pool, key)
         if device.index != torch.cuda.current_device():
             with torch.cuda.device(device):
                 return graph.replay(inputs)

@@ -324,9 +324,12 @@ def gate_pipeline_dp_tp_mxu(cfg: ServerConfig, mesh: DeviceMesh):
     covers the full contraction), then recombine_acc. The loop is
     the single-device one (bootstrap_mxu.scan_for, with the rank's window
     and the sum as hooks): at batches where auto_defer holds (u32; B >=
-    8192 at TPU128) the recombine is folded into the next step's K3. Both
-    tori, mxu_limb_drop included. ShardingMismatch unless tp divides R.
-    fn.out_axes = ("dp",); graphed as gate_pipeline_dp_tp is."""
+    8192 at TPU128) the recombine is folded into the next step's K3. A
+    rank that holds part of the R blocks keeps the table (auto_window);
+    a tp group of one takes the single-device loop's window step at small
+    u64 batches. Both tori, mxu_limb_drop included. ShardingMismatch
+    unless tp divides R. fn.out_axes = ("dp",); graphed as
+    gate_pipeline_dp_tp is."""
     plan = bsx.MxuPlan.from_config(cfg)
     tp, idx, _ = _tp(mesh)
     checks.check_tp_divides(
@@ -338,7 +341,7 @@ def gate_pipeline_dp_tp_mxu(cfg: ServerConfig, mesh: DeviceMesh):
         checks.check_bsk_mxu(rings, cfg)
         rows = _checked_inputs(cfg, mesh, lut, lin)
         acc, a_hats = rotation_start(lut, rows, cfg.polynomial_size)
-        scan = bsx.scan_for(plan, acc.shape[1])
+        scan = bsx.scan_for(plan, acc.shape[1], blocks=plan.row_blocks // tp)
         acc = scan(plan, shard(rings, mesh, (None, "tp")), acc, a_hats,
                    block0, reduce)
         return _keyswitch_tp(cfg, ksk8, sample_extract(acc.transpose(0, 1)),

@@ -144,7 +144,8 @@ def test_wrappers_take_plain_versions_on_cpu():
     assert bsx_t.launch_counts() == {"build_tables": 0, "rotdig": 0,
                                      "rotdig_recombine": 0, "rotdig64": 0,
                                      "recombine_acc": 0,
-                                     "fused_external_product_acc": 0}
+                                     "fused_external_product_acc": 0,
+                                     "window_step": 0}
     with pytest.raises(TypeError):
         bsx_t.rotdig(plan, acc, a_hat.to(torch.int64))
     with pytest.raises(ValueError):
@@ -389,3 +390,71 @@ def test_plain_scan_at_16_rows_matches_jax(bits):
     assert acc.shape[1] == b
     np.testing.assert_array_equal(torus.to_numpy(acc.permute(1, 0, 2)), want)
 
+
+
+_INT4 = bs_t.ServerConfig(lwe_dimension=630, glwe_dimension=1,
+                          polynomial_size=1024, pbs_base_log=7, pbs_level=3,
+                          ks_base_log=2, ks_level=8, bits=64)
+
+
+@pytest.mark.parametrize("b,path", [
+    (1, "window"), (16, "window"), (bsx_t.WINDOW_MAX_BATCH, "window"),
+    (bsx_t.WINDOW_MAX_BATCH + 1, "table"), (2048, "table")])
+def test_auto_window_routes_the_u64_step_by_batch(b, path):
+    """auto_window, a pure function of the plan, the batch and the ring
+    blocks the scan holds, sends the int4 step to the window loop up to
+    the crossover and to the table loop above it; scan_for follows it."""
+    plan = bsx_t.MxuPlan.from_config(_INT4)
+    assert bsx_t.auto_window(plan, b) == (path == "window")
+    assert bsx_t.auto_window(plan, b, plan.row_blocks) == (path == "window")
+    want = bsx_t._window_scan if path == "window" else bsx_t._plain_scan
+    assert bsx_t.scan_for(plan, b) is want
+    assert bsx_t.scan_for(plan, b, blocks=plan.row_blocks) is want
+
+
+def test_auto_window_keeps_the_table_for_tensor_parallel_rings_and_u32():
+    """A tensor-parallel rank's ring blocks (R/tp of them) keep the table
+    loop and its partial sum, as do the u32 torus and an N the kernel's
+    column tile does not divide; the window loop refuses a rank's hooks."""
+    plan = bsx_t.MxuPlan.from_config(_INT4)
+    for tp in (2, 3, 6):
+        blocks = plan.row_blocks // tp
+        assert not bsx_t.auto_window(plan, 16, blocks)
+        assert bsx_t.scan_for(plan, 16, blocks=blocks) is bsx_t._plain_scan
+    assert not bsx_t.auto_window(dataclasses.replace(plan, bits=32), 16)
+    assert not bsx_t.auto_window(
+        dataclasses.replace(plan, polynomial_size=32), 16)
+    with pytest.raises(ValueError):
+        bsx_t._window_scan(plan, None, None, None, block0=plan.row_blocks // 2)
+    with pytest.raises(ValueError):
+        bsx_t._window_scan(plan, None, None, None, reduce=lambda s: s)
+
+
+def test_window_rotation_counts_its_path_and_matches_jax():
+    """A u64 rotation of 16 rows takes the window loop (K4, then
+    window_step, whose CPU version is build_tables_plain -> int_mm -> the
+    plain recombine): five steps counted under path=window, the JAX
+    accumulator bit for bit. One row past the crossover the rotation takes
+    the table loop (path=table), and the window loop called there agrees."""
+    kw = dict(lwe_dimension=5, glwe_dimension=1, polynomial_size=64,
+              pbs_base_log=7, pbs_level=3, ks_base_log=2, ks_level=8, bits=64)
+    cfg_j, cfg_t = bs_jax.ServerConfig(**kw), bs_t.ServerConfig(**kw)
+    rng = np.random.default_rng(47)
+    bsk, lut, lwe = _u64_rotation_inputs(rng, cfg_t, 16)
+    rings = bsx_jax.bsk_to_mxu(bsk, cfg_j)
+    want = np.asarray(bsx_jax.blind_rotate_mxu(
+        cfg_j, jnp.asarray(rings), jnp.asarray(lut), jnp.asarray(lwe)))
+    bsx_t.STEPS.reset()
+    got = bsx_t.blind_rotate_mxu(cfg_t, _t(rings), _t(lut), _t(lwe))
+    assert bsx_t.STEPS.by_key == {"rows=16 path=window": 5}
+    np.testing.assert_array_equal(torus.to_numpy(got), want)
+
+    b = bsx_t.WINDOW_MAX_BATCH + 1
+    lwe = rng.integers(0, 1 << 64, size=(b, 6), dtype=np.uint64)
+    bsx_t.STEPS.reset()
+    got = bsx_t.blind_rotate_mxu(cfg_t, _t(rings), _t(lut), _t(lwe))
+    assert bsx_t.STEPS.by_key == {f"rows={b} path=table": 5}
+    plan = bsx_t.MxuPlan.from_config(cfg_t)
+    acc0, a_hats = bs_t.rotation_start(_t(lut), _t(lwe), 64)
+    acc = bsx_t._window_scan(plan, _t(rings), acc0, a_hats)
+    assert torch.equal(acc.permute(1, 0, 2), got)

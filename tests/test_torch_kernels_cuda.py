@@ -190,10 +190,18 @@ def test_recombine_acc_kernel(dev, bits, b, n, ks1, fast, in_place):
     assert torch.equal(got, want)
 
 
-def test_u64_blind_rotation_launches_one_recombine_a_step(dev):
-    """The u64 plain loop at B = 16 (an int4 small request) recombines
-    every CMux step in one recombine_acc launch, and the result is the
-    CPU's."""
+# (B, the CMux loop's path): an int4 small request, the largest batch of
+# the window step and one row past it
+WINDOW_BATCHES = [(16, "window"), (bsx.WINDOW_MAX_BATCH, "window"),
+                  (bsx.WINDOW_MAX_BATCH + 1, "table")]
+
+
+@pytest.mark.parametrize("b,path", WINDOW_BATCHES)
+def test_u64_blind_rotation_launches_one_recombine_a_step(dev, b, path):
+    """The u64 loop recombines every CMux step once: up to the crossover
+    inside its one window_step launch (no K1, no recombine_acc), above it
+    in one recombine_acc launch after K1 and the product; the result is
+    the CPU's, whose loop takes the same path."""
     cfg = bs.ServerConfig(lwe_dimension=10, glwe_dimension=1,
                           polynomial_size=256, pbs_base_log=7, pbs_level=3,
                           ks_base_log=2, ks_level=8, bits=64)
@@ -202,13 +210,22 @@ def test_u64_blind_rotation_launches_one_recombine_a_step(dev):
     rings = torus.from_numpy(bsx.bsk_to_mxu(bsk, cfg))
     lut = torus.from_numpy(rng.integers(0, 1 << 64, size=(2, 256),
                                         dtype=np.uint64))
-    lwe = torus.from_numpy(rng.integers(0, 1 << 64, size=(16, 11),
+    lwe = torus.from_numpy(rng.integers(0, 1 << 64, size=(b, 11),
                                         dtype=np.uint64))
+    bsx.STEPS.reset()
     want = bsx.blind_rotate_mxu(cfg, rings, lut, lwe)
     bsx.reset_launch_counts()
     got = bsx.blind_rotate_mxu(cfg, rings.to(dev), lut.to(dev), lwe.to(dev))
-    assert bsx.recombine_acc.launches == cfg.lwe_dimension
-    assert bsx.recombine_acc.shapes == {"B=16 ks1=2 N=256 limbs=8": 10}
+    key = f"B={b} ks1=2 N=256 limbs=8"
+    assert bsx.STEPS.by_key == {f"rows={b} path={path}": 20}   # CPU and card
+    if path == "window":
+        assert bsx.window_step.shapes == {key: 10}
+        assert bsx.recombine_acc.launches == bsx.build_tables.launches == 0
+    else:
+        assert bsx.recombine_acc.launches == cfg.lwe_dimension
+        assert bsx.recombine_acc.shapes == {key: 10}
+        assert bsx.build_tables.launches == 10
+        assert bsx.window_step.launches == 0
     assert torch.equal(got.cpu(), want)
 
 
@@ -286,6 +303,40 @@ def test_u64_blind_rotation_on_gpu_matches_cpu(dev, bl, l, drop):
     got = bsx.bootstrap_mxu(cfg, rings.to(dev), lut.to(dev), lwe.to(dev))
     assert bsx.rotdig64.launches == before + 10
     assert torch.equal(got.cpu(), want)
+
+
+# B: one row, a few, the int4 small request and one row past it, two m16
+# tiles, and the crossover (several blocks of 64 rows where it passes 64)
+@pytest.mark.parametrize("b", [1, 5, 16, 17, 32, bsx.WINDOW_MAX_BATCH])
+@pytest.mark.parametrize("n", [256, 1024])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("bl,l", [(7, 3), (10, 3)], ids=["bl7", "bl10"])
+@pytest.mark.parametrize("drop", [0, 2])
+def test_window_step_kernel(dev, b, n, k, bl, l, drop):
+    """window_step against its plain version (K1's table, the int8
+    product, the recombine and the add), bit for bit, at n_sub 1 and 2
+    (bl 10), every limb kept or two dropped, with int8 digits over their
+    whole range; into a new tensor at an odd batch, in place (`out=acc`)
+    at an even one."""
+    cfg = bs.ServerConfig(lwe_dimension=1, glwe_dimension=k,
+                          polynomial_size=n, pbs_base_log=bl, pbs_level=l,
+                          ks_base_log=2, ks_level=8, bits=64,
+                          mxu_limb_drop=drop)
+    plan = bsx.MxuPlan.from_config(cfg)
+    assert plan.n_sub == (1 if bl == 7 else 2)
+    r = plan.row_blocks
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(b * 1009 + n * 7 + k * 3 + bl + drop)
+    acc = _random_words(gen, (k + 1, b, n), torch.int64, dev)
+    d8 = _random_words(gen, (b, r * n // 4), torch.int32, dev).view(torch.int8)
+    rings = _random_words(gen, (r, (k + 1) * 2, 2 * n), torch.int32, dev)
+    want = bsx.window_step_plain(plan, acc, d8, rings)
+    in_place = b % 2 == 0
+    before = bsx.window_step.launches
+    got = bsx.window_step(plan, acc, d8, rings, out=acc if in_place else None)
+    assert bsx.window_step.launches == before + 1
+    torch.cuda.synchronize()
+    assert (got is acc) == in_place and torch.equal(got, want)
 
 
 # -- the Nussbaumer backend: K5, K6, K7 and K1 on its rings ---------------------
@@ -759,12 +810,21 @@ def test_int_mm_pads_the_small_operand_not_the_table(dev, m, k, n, layout):
     assert torch.equal(got, want) and torch.equal(out, want)
 
 
-def test_int4_widths_at_16_rows_match_cpu_and_copy_no_table(dev):
+@pytest.mark.parametrize("b,path", [WINDOW_BATCHES[0], WINDOW_BATCHES[2]])
+def test_int4_widths_at_16_rows_match_cpu_and_copy_no_table(dev, b, path,
+                                                            monkeypatch):
     """The int4 widths (u64, N = 1024, k = 1, PBS bl 7 l 3, KS bl 2 l 8;
-    the rotation cut to 4 steps) at a batch of 16: the blind rotation and
-    a replay of jit_bootstrap_keyswitch_mxu on the card equal the CPU; the
-    rotation pads nothing, and the replay's graph no table ("b") and
-    nothing but the keyswitch's 16 x 8192 digit block ("a")."""
+    the rotation cut to 4 steps) at a batch of 16 and one row past the
+    window step's crossover: the blind rotation and a replay of
+    jit_bootstrap_keyswitch_mxu on the card equal the CPU; the rotation
+    pads nothing, and the replay's graph no table ("b") and nothing but
+    the keyswitch's digit block ("a", gemm_rows(b) x 8192). At 16 rows the
+    rotation launches no K1 and calls no torch._int_mm: one window_step a
+    step; past the crossover one K1 a step."""
+    int_mm_calls = []
+    int_mm = torch._int_mm
+    monkeypatch.setattr(torch, "_int_mm", lambda *a, **k: (
+        int_mm_calls.append(a[0].device.type), int_mm(*a, **k))[1])
     cfg = bs.ServerConfig(lwe_dimension=4, glwe_dimension=1,
                           polynomial_size=1024, pbs_base_log=7, pbs_level=3,
                           ks_base_log=2, ks_level=8, bits=64)
@@ -779,18 +839,26 @@ def test_int4_widths_at_16_rows_match_cpu_and_copy_no_table(dev):
     call = bsx.jit_bootstrap_keyswitch_mxu(cfg)
     for i in range(2):
         lut = torus.from_numpy(rng.integers(0, top, size=(2, 1024), **word))
-        lwe = torus.from_numpy(rng.integers(0, top, size=(16, 5), **word))
+        lwe = torus.from_numpy(rng.integers(0, top, size=(b, 5), **word))
         before = _pad_bytes()
+        bsx.reset_launch_counts()
+        int_mm_calls.clear()
         got = bsx.blind_rotate_mxu(cfg, keys[0], lut.to(dev), lwe.to(dev))
         torch.cuda.synchronize()
         assert _pad_delta(before) == {}
+        if path == "window":
+            assert int_mm_calls == [] and bsx.build_tables.launches == 0
+            assert bsx.window_step.shapes == {f"B={b} ks1=2 N=1024 limbs=8": 4}
+        else:
+            assert int_mm_calls == ["cuda"] * 4
+            assert bsx.build_tables.launches == 4
         assert torch.equal(got.cpu(), bsx.blind_rotate_mxu(cfg, rings, lut,
                                                            lwe))
         before = _pad_bytes()
         got = call(*keys, lut.to(dev), lwe.to(dev))
         torch.cuda.synchronize()
         if i:          # the first call also runs fn once before its capture
-            assert _pad_delta(before) == {"a": 32 * 8192}
+            assert _pad_delta(before) == {"a": bsx.gemm_rows(b) * 8192}
         assert len(call.graphs) == 1
         assert torch.equal(got.cpu(), call(rings, ksk8, lut, lwe))
 
