@@ -8,6 +8,13 @@ two vectors of m integers costs the same number of sequential gate calls as
 adding one, m riding the batch axis. Ciphertexts are int32 tensors on the
 server key's device; encrypt_uint and decrypt_uint run on the host.
 
+Each adder call is the span ``circuit.adder`` (ops/graphs.py); its gate
+calls are the gates' own spans inside it (an 8-bit add: ``gate.xor`` 15,
+``gate.and`` 1, ``gate.mux`` 7). Between its first and last gate call no
+call synchronises with the device: each call's inputs are earlier calls'
+outputs on the device. Only a launch queue full of earlier calls' work holds
+a graph launch back.
+
 Example (2-bit adds on tiny insecure parameters, on the CPU):
     >>> from concrete_tpu_torch import boolean
     >>> from concrete_tpu_torch.params import BooleanParameters
@@ -28,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import graphs
 from ..torus import as_torus, to_numpy
 from .server_key import ServerKey
 
@@ -37,20 +45,21 @@ def ripple_carry_adder(sks: ServerKey, a_bits, b_bits, carry_in=None):
     the least significant; np.uint32 or int32 tensors) -> (sum bits
     [nbits, ..., n+1], carry out [..., n+1]), int32 tensors on the key's
     device."""
-    a_bits = as_torus(a_bits, sks.device)
-    b_bits = as_torus(b_bits, sks.device)
-    carry = None if carry_in is None else as_torus(carry_in, sks.device)
-    sums = []
-    for a, b in zip(a_bits, b_bits):
-        axb = sks.xor(a, b)
-        if carry is None:
-            s = axb
-            carry = sks.and_(a, b)
-        else:
-            s = sks.xor(axb, carry)
-            carry = sks.mux(axb, carry, a)
-        sums.append(s)
-    return torch.stack(sums), carry
+    with graphs.span("circuit.adder"):
+        a_bits = as_torus(a_bits, sks.device)
+        b_bits = as_torus(b_bits, sks.device)
+        carry = None if carry_in is None else as_torus(carry_in, sks.device)
+        sums = []
+        for a, b in zip(a_bits, b_bits):
+            axb = sks.xor(a, b)
+            if carry is None:
+                s = axb
+                carry = sks.and_(a, b)
+            else:
+                s = sks.xor(axb, carry)
+                carry = sks.mux(axb, carry, a)
+            sums.append(s)
+        return torch.stack(sums), carry
 
 
 def encrypt_uint(cks, values, nbits: int, *, mask_seed=None,
